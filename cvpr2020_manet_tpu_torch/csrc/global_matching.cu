@@ -1,0 +1,343 @@
+// Global matching against a bucketed reference, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel cvpr2020_manet_tpu/ops/matching_pallas.py
+// `_matching_kernel` (called by `global_matching_prepared`). For every
+// query row q and object o it computes
+//
+//   out[q, o] = normalize(clamp(|q|^2 + min_{k in o} (|k|^2 - 2 q.k), 0, 1e8))
+//
+// over a reference that `prepare_ref` sorted into block_k-row blocks, one
+// object per block (`block_obj`; slack blocks carry a sentinel >= num_obj
+// and are skipped). `neg2` holds -2k in the model dtype and `sqnorm` the
+// f32 |k|^2 (1e8 on padding rows), so a tile needs one product and one add
+// per pair. An object without blocks keeps 1e8 and normalizes to 1.0.
+//
+// The TPU grid's sequential k axis becomes a loop inside the block: a
+// block owns a tile of queries and walks every k-block; each key tile is
+// folded into a running row-min right away and, at the end of its k-block,
+// into the block's (queries, O) accumulator in shared memory. The distance
+// matrix never reaches device memory.
+//
+// Bound on an H100: the cross term is 2 Nq Nk C operations against
+// Nq C + Nk C input elements, far above the card's ridge point, so the
+// function is bound by operations (989 TFLOP/s bf16 on the tensor cores).
+//
+// Two variants:
+// - bf16 with C = 128 (the model's path): tensor cores through
+//   `mma.sync.m16n8k16` (bf16 in, f32 accumulate). A block of 4 warps owns
+//   128 queries; each warp keeps the A fragments of its 32 queries x 128
+//   channels in registers for the whole kernel and reuses every B fragment
+//   for two 16-row tiles. 64-key tiles of -2k stream through shared memory
+//   with cp.async, double-buffered. `mma.sync` reaches a fraction of the
+//   `wgmma` peak; a warpgroup (wgmma + TMA) version is the next step.
+// - f32 (the tiny test config): plain FMA on the CUDA cores, 64 queries x
+//   64 keys per tile, 4 x 4 outputs per thread.
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int O_MAX = 16;      // objects per accumulator row
+constexpr int TILE_K = 64;     // keys per tile; divides block_k
+
+// ------------------------------------------------------------ tensor cores
+
+constexpr int MMA_C = 128;                 // channels (the padded embedding)
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_ROWS = 32;               // queries per warp (2 m16 tiles)
+constexpr int MMA_TQ = MMA_WARPS * MMA_ROWS;
+constexpr int MMA_PITCH = MMA_C + 8;       // bf16 per staged key row
+constexpr int MMA_KSTEPS = MMA_C / 16;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// First block at or after kb that holds an object (slack blocks skipped).
+__device__ __forceinline__ int next_block(const int* __restrict__ block_obj,
+                                          int kb, int nkb, int num_obj) {
+  while (kb < nkb && static_cast<unsigned>(block_obj[kb]) >= static_cast<unsigned>(num_obj)) ++kb;
+  return kb;
+}
+
+__global__ void __launch_bounds__(MMA_WARPS * 32, 3)
+global_matching_mma_bf16(const __nv_bfloat16* __restrict__ query,
+                         const __nv_bfloat16* __restrict__ neg2,
+                         const float* __restrict__ sqnorm,
+                         const int* __restrict__ block_obj,
+                         float* __restrict__ out,
+                         int64_t nq, int nkb, int block_k, int num_obj) {
+  __shared__ __align__(16) __nv_bfloat16 ks[2][TILE_K * MMA_PITCH];
+  __shared__ float acc[MMA_TQ][O_MAX];
+  __shared__ float qn[MMA_TQ];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * MMA_TQ;
+
+  for (int i = tid; i < MMA_TQ * O_MAX; i += MMA_WARPS * 32)
+    (&acc[0][0])[i] = manet::kBig;
+
+  // A fragments of this warp's 32 queries (rows g, g+8 of two m16 tiles)
+  // and their partial |q|^2 over the channels this lane holds.
+  uint32_t a[2][MMA_KSTEPS][4];
+  float qsq[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t row = q0 + warp * MMA_ROWS + m * 16 + g + half * 8;
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(query + row * MMA_C);
+#pragma unroll
+      for (int s = 0; s < MMA_KSTEPS; ++s) {
+        const uint32_t lo = row < nq ? src[s * 8 + t] : 0u;       // cols 2t, 2t+1
+        const uint32_t hi = row < nq ? src[s * 8 + 4 + t] : 0u;   // cols 2t+8, 2t+9
+        a[m][s][half] = lo;
+        a[m][s][2 + half] = hi;
+        const __nv_bfloat162 l2 = *reinterpret_cast<const __nv_bfloat162*>(&lo);
+        const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+        const float2 lf = __bfloat1622float2(l2), hf = __bfloat1622float2(h2);
+        qsq[m][half] += lf.x * lf.x + lf.y * lf.y + hf.x * hf.x + hf.y * hf.y;
+      }
+    }
+  }
+
+  // stage tile (kb, kt) of -2k into buffer `buf`: 64 rows x 256 bytes
+  auto load_tile = [&](int buf, int kb, int kt) {
+    const __nv_bfloat16* src = neg2 + (static_cast<int64_t>(kb) * block_k + kt) * MMA_C;
+#pragma unroll
+    for (int j = 0; j < TILE_K * MMA_C / 8 / (MMA_WARPS * 32); ++j) {
+      const int idx = tid + j * MMA_WARPS * 32;
+      const int row = idx >> 4, chunk = idx & 15;
+      cp_async16(&ks[buf][row * MMA_PITCH + chunk * 8], src + row * MMA_C + chunk * 8);
+    }
+  };
+
+  float rmin[2][2] = {{manet::kBig, manet::kBig}, {manet::kBig, manet::kBig}};
+  int kb = next_block(block_obj, 0, nkb, num_obj), kt = 0, buf = 0;
+  if (kb < nkb) load_tile(0, kb, 0);
+  cp_async_commit();
+  while (kb < nkb) {
+    int nkt = kt + TILE_K, nkb2 = kb;
+    if (nkt == block_k) {
+      nkt = 0;
+      nkb2 = next_block(block_obj, kb + 1, nkb, num_obj);
+    }
+    if (nkb2 < nkb) load_tile(buf ^ 1, nkb2, nkt);
+    cp_async_commit();
+    cp_async_wait_one();   // this tile has landed
+    __syncthreads();
+
+    const __nv_bfloat16* tile = ks[buf];
+    const float* sq = sqnorm + static_cast<int64_t>(kb) * block_k + kt;
+#pragma unroll 1
+    for (int ns = 0; ns < TILE_K / 8; ns += 2) {
+      float d[2][2][4] = {};   // [n-subtile][m-tile][fragment]
+#pragma unroll
+      for (int s = 0; s < MMA_KSTEPS; ++s) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const uint32_t* brow = reinterpret_cast<const uint32_t*>(
+              tile + ((ns + n) * 8 + g) * MMA_PITCH + s * 16);
+          const uint32_t b0 = brow[t], b1 = brow[4 + t];
+          mma_bf16(d[n][0], a[0][s], b0, b1);
+          mma_bf16(d[n][1], a[1][s], b0, b1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 s2 = *reinterpret_cast<const float2*>(sq + (ns + n) * 8 + 2 * t);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          rmin[m][0] = fminf(rmin[m][0], fminf(d[n][m][0] + s2.x, d[n][m][1] + s2.y));
+          rmin[m][1] = fminf(rmin[m][1], fminf(d[n][m][2] + s2.x, d[n][m][3] + s2.y));
+        }
+      }
+    }
+
+    if (nkb2 != kb) {   // the k-block ends: fold its minima into its object
+      const int obj = block_obj[kb];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float v = rmin[m][half];
+          v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+          v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+          if (t == 0) {
+            float* cell = &acc[warp * MMA_ROWS + m * 16 + g + half * 8][obj];
+            *cell = fminf(*cell, v);
+          }
+          rmin[m][half] = manet::kBig;
+        }
+      }
+    }
+    __syncthreads();   // the tile is consumed before its buffer refills
+    kb = nkb2;
+    kt = nkt;
+    buf ^= 1;
+  }
+
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float v = qsq[m][half];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (t == 0) qn[warp * MMA_ROWS + m * 16 + g + half * 8] = v;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < MMA_TQ * num_obj; i += MMA_WARPS * 32) {
+    const int row = i / num_obj, o = i - row * num_obj;
+    const int64_t gq = q0 + row;
+    if (gq < nq) out[gq * num_obj + o] = manet::finish_distance(acc[row][o], qn[row]);
+  }
+}
+
+// ------------------------------------------------------------- CUDA cores
+
+constexpr int FMA_TQ = 64;       // queries per block
+constexpr int FMA_CK = 32;       // channels per staged key chunk
+constexpr int FMA_C_MAX = 128;   // channels held for the query tile
+constexpr int FMA_PAD = 4;       // keeps float4 rows aligned, spreads banks
+constexpr int FMA_THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
+
+__global__ void __launch_bounds__(FMA_THREADS)
+global_matching_fma(const float* __restrict__ query,
+                    const float* __restrict__ neg2,
+                    const float* __restrict__ sqnorm,
+                    const int* __restrict__ block_obj,
+                    float* __restrict__ out,
+                    int64_t nq, int c, int nkb, int block_k, int num_obj) {
+  __shared__ __align__(16) float qs[FMA_C_MAX][FMA_TQ + FMA_PAD];  // transposed
+  __shared__ __align__(16) float kc[FMA_CK][TILE_K + FMA_PAD];     // transposed
+  __shared__ float acc[FMA_TQ][O_MAX];
+  __shared__ float qn[FMA_TQ];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;  // keys tx*4 .. tx*4+3 of a tile
+  const int ty = tid >> 4;  // queries ty*4 .. ty*4+3 of the block
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * FMA_TQ;
+
+  for (int i = tid; i < FMA_TQ * c; i += FMA_THREADS) {
+    const int row = i / c, col = i - row * c;
+    const int64_t gq = q0 + row;
+    qs[col][row] = gq < nq ? query[gq * c + col] : 0.f;
+  }
+  for (int i = tid; i < FMA_TQ * O_MAX; i += FMA_THREADS) (&acc[0][0])[i] = manet::kBig;
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int obj = block_obj[kb];
+    if (obj < 0 || obj >= num_obj) continue;  // slack block (uniform branch)
+    float bmin[4] = {manet::kBig, manet::kBig, manet::kBig, manet::kBig};
+    for (int kt = 0; kt < block_k; kt += TILE_K) {
+      const int64_t k0 = static_cast<int64_t>(kb) * block_k + kt;
+      float r[4][4] = {};
+      for (int c0 = 0; c0 < c; c0 += FMA_CK) {
+        __syncthreads();  // the previous chunk is consumed (and qs is ready)
+        for (int i = tid; i < TILE_K * FMA_CK; i += FMA_THREADS) {
+          const int row = i / FMA_CK, col = i - row * FMA_CK;
+          kc[col][row] = neg2[(k0 + row) * c + c0 + col];
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int j = 0; j < FMA_CK; ++j) {
+          const float4 av = *reinterpret_cast<const float4*>(&qs[c0 + j][ty * 4]);
+          const float4 bv = *reinterpret_cast<const float4*>(&kc[j][tx * 4]);
+          const float a4[4] = {av.x, av.y, av.z, av.w};
+          const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) r[i][jj] = fmaf(a4[i], b4[jj], r[i][jj]);
+        }
+      }
+      float sq[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) sq[jj] = sqnorm[k0 + tx * 4 + jj];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) bmin[i] = fminf(bmin[i], r[i][jj] + sq[jj]);
+    }
+    // min over the 16 threads (lane bits 0..3) that share these queries
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        bmin[i] = fminf(bmin[i], __shfl_xor_sync(0xffffffffu, bmin[i], off));
+    if (tx == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[ty * 4 + i][obj] = fminf(acc[ty * 4 + i][obj], bmin[i]);
+    }
+  }
+  __syncthreads();
+
+  if (tid < FMA_TQ) {
+    float s = 0.f;
+    for (int col = 0; col < c; ++col) s = fmaf(qs[col][tid], qs[col][tid], s);
+    qn[tid] = s;
+  }
+  __syncthreads();
+  for (int i = tid; i < FMA_TQ * num_obj; i += FMA_THREADS) {
+    const int row = i / num_obj, o = i - row * num_obj;
+    const int64_t gq = q0 + row;
+    if (gq < nq) out[gq * num_obj + o] = manet::finish_distance(acc[row][o], qn[row]);
+  }
+}
+
+}  // namespace
+
+// query (nq, c) and neg2 (nkb * block_k, c) in f32 (is_bf16 = 0) or in
+// bf16 with c = 128 (is_bf16 = 1); sqnorm (nkb, block_k) f32; block_obj
+// (nkb,) int32; out (nq, num_obj) f32. All contiguous on the current
+// device, query and neg2 16-byte aligned.
+extern "C" int manet_global_matching(const void* query, const void* neg2,
+                                     const void* sqnorm, const void* block_obj,
+                                     void* out, long long nq, int c, int nkb,
+                                     int block_k, int num_obj, int is_bf16,
+                                     void* stream) {
+  if (nq <= 0 || c <= 0 || c > FMA_C_MAX || c % FMA_CK != 0 || block_k <= 0 ||
+      block_k % TILE_K != 0 || num_obj <= 0 || num_obj > O_MAX || nkb < 0 ||
+      (is_bf16 && c != MMA_C))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* bo = static_cast<const int*>(block_obj);
+  const auto* sq = static_cast<const float*>(sqnorm);
+  auto* o = static_cast<float*>(out);
+  if (is_bf16) {
+    const dim3 grid(static_cast<unsigned>((nq + MMA_TQ - 1) / MMA_TQ));
+    global_matching_mma_bf16<<<grid, MMA_WARPS * 32, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(query),
+        static_cast<const __nv_bfloat16*>(neg2), sq, bo, o, nq, nkb, block_k,
+        num_obj);
+  } else {
+    const dim3 grid(static_cast<unsigned>((nq + FMA_TQ - 1) / FMA_TQ));
+    global_matching_fma<<<grid, FMA_THREADS, 0, s>>>(
+        static_cast<const float*>(query), static_cast<const float*>(neg2), sq,
+        bo, o, nq, c, nkb, block_k, num_obj);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

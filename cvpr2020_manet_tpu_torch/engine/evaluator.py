@@ -1,0 +1,423 @@
+"""Interactive evaluation engine, PyTorch port of `engine/evaluator.py`.
+
+Per sequence the encoder runs once (`start_sequence`, in 8-frame chunks
+over a padded frame bucket). Per round (`dispatch_round`, the monolithic
+round of the JAX package):
+
+1. the interaction head and the MA memory gate run on the annotated frame
+   (`_interaction`);
+2. the annotated frame's pixels are bucketed by object (`prepare_ref`) and
+   ONE global-matching launch covers all T-1 other frames;
+3. a (T-1)-step sweep visits frames annot+1 .. T-1, then annot-1 .. 0,
+   resetting its carry to the interaction output where the backward sweep
+   starts; each step runs local matching, min-fusion, the decomposed
+   propagation head and a softmax;
+4. probabilities are upsampled, argmaxed and bit-packed (`_masks_impl`);
+   `collect_round` downloads and unpacks them.
+
+Everything runs under `torch.inference_mode()` on the evaluator's device
+(`cuda` unless the caller passes another). Not ported yet: segmented
+rounds, `stacked` matching memory, `gmap_refresh`, `ablate_memory`,
+context-parallel matching, int8 matching, uint8 frame ingest.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cvpr2020_manet_tpu_torch.config import Config
+from cvpr2020_manet_tpu_torch.device import resolve_device
+from cvpr2020_manet_tpu_torch.interactive.scribbles import (
+    annotated_frames, scribbles2mask)
+from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
+from cvpr2020_manet_tpu_torch.models.manet import NEG_INF, MANet
+from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
+    global_matching_prepared, prepare_ref)
+
+
+def pad_image_to(x: np.ndarray, multiple: int) -> np.ndarray:
+    """Pad trailing spatial edges of (..., H, W, C) to a stride multiple."""
+    h, w = x.shape[-3], x.shape[-2]
+    ph, pw = (-h) % multiple, (-w) % multiple
+    if ph == 0 and pw == 0:
+        return x
+    return np.pad(x, [(0, 0)] * (x.ndim - 3) + [(0, ph), (0, pw), (0, 0)])
+
+
+def pack_labels(lab, bits: int):
+    """Bit-pack uint8 labels along the trailing (W) axis (torch or numpy):
+    8 px/byte at 1 bit, 4 at 2 bits, 2 at 4 bits."""
+    if bits == 1:
+        acc = lab[..., 0::8]
+        for i in range(1, 8):
+            acc = acc | (lab[..., i::8] << i)
+        return acc
+    if bits == 2:
+        return (lab[..., 0::4] | (lab[..., 1::4] << 2)
+                | (lab[..., 2::4] << 4) | (lab[..., 3::4] << 6))
+    if bits == 4:
+        return lab[..., 0::2] | (lab[..., 1::2] << 4)
+    return lab
+
+
+def mask_bits_for_labels(num_labels: int) -> int:
+    """Bits/px for the LIVE label count of a sequence."""
+    if num_labels <= 2:
+        return 1
+    if num_labels <= 4:
+        return 2
+    if num_labels <= 16:
+        return 4
+    return 8
+
+
+def aligned_mask_bits(num_labels: int, w_pad: int) -> int:
+    """mask_bits_for_labels widened until the packed W axis is whole-byte
+    aligned (the strided pack slices need W % (8/bits) == 0)."""
+    bits = mask_bits_for_labels(num_labels)
+    while w_pad % (8 // bits):
+        bits *= 2
+    return bits
+
+
+def object_bucket_for(num_objects: int | None, o_max: int) -> int:
+    """Padded object-axis size for a sequence (4 when it fits, else the
+    full bucket)."""
+    if num_objects is None:
+        return o_max
+    for b in sorted({min(4, o_max), o_max}):
+        if num_objects + 1 <= b:
+            return b
+    return o_max
+
+
+def unpack_labels(packed: np.ndarray, bits: int) -> np.ndarray:
+    """Inverse of `pack_labels`: (..., W // ppb) uint8 -> (..., W) uint8."""
+    if bits == 8:
+        return packed
+    n = 8 // bits
+    mask = (1 << bits) - 1
+    out = np.empty((*packed.shape[:-1], packed.shape[-1] * n), np.uint8)
+    for i in range(n):
+        np.bitwise_and(packed >> (bits * i) if i else packed, mask,
+                       out=out[..., i::n])
+    return out
+
+
+@dataclasses.dataclass
+class RoundHandle:
+    """Device outputs of one dispatched round, not yet downloaded."""
+    pk: int                 # mask bits/px
+    nf: int                 # actual (unpadded) frame count
+    masks: Any = None       # (T, H, W * pk / 8) packed uint8, on the device
+
+
+@dataclasses.dataclass
+class SequenceState:
+    """Per-sequence device state, kept across rounds."""
+    feat: torch.Tensor | None        # (T, h, w, Cd)
+    emb: torch.Tensor | None         # (T, h, w, Ce)
+    prev_masks: torch.Tensor | None  # (T, h, w, O) probabilities
+    gmap_mem: torch.Tensor | None    # (T, h, w, O) running-min global maps
+    int_mem: torch.Tensor | None     # (O, h, w, Cma) f32
+    round_idx: int
+    num_frames: int                  # actual (unpadded) frame count
+
+
+def release_state(state: SequenceState, keep_features: bool = False) -> None:
+    """Drop a sequence state's device tensors now (not at GC time);
+    `keep_features` keeps feat/emb for the same sequence's next set."""
+    state.prev_masks = state.gmap_mem = state.int_mem = None
+    if not keep_features:
+        state.feat = state.emb = None
+
+
+class Evaluator:
+    """Runs a model against an `InteractiveSession`."""
+
+    def __init__(self, cfg: Config, model: MANet, device=None):
+        ev = cfg.eval
+        if ev.round_segments != 1:
+            raise NotImplementedError(
+                f"round_segments={ev.round_segments}: only the monolithic "
+                "round (1) is ported")
+        if ev.matching_memory != "min_fused":
+            raise NotImplementedError(
+                f"matching_memory={ev.matching_memory!r}: only 'min_fused' "
+                "is ported")
+        if ev.gmap_refresh != 0.0:
+            raise NotImplementedError("gmap_refresh > 0 is not ported")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.o = cfg.model.max_objects + 1
+        self.stride = cfg.model.feature_stride
+        self.round_latencies: list[float] = []
+
+    # ---------------- device graph of one round ------------------------ #
+
+    def _interaction(self, feat, emb, raster, annot, prev_masks, int_mem,
+                     is_first, obj_valid):
+        """Scribble pooling, interaction branch, MA update, matching
+        reference labels. Returns (int_probs, int_mem, ref_emb, ref_onehot)."""
+        model = self.model
+        h, w = feat.shape[1:3]
+        o = prev_masks.shape[-1]
+        s = self.stride
+        # raster (H_pad, W_pad), -1 = unscribbled -> per-object presence
+        # max-pooled to feature stride
+        raster = raster.long()
+        scr = (raster >= 0).float()[..., None]
+        oh = F.one_hot(torch.clamp(raster, 0, o - 1), o).float() * scr
+
+        def blockmax(x):
+            return x.reshape(h, s, w, s, o).amax(dim=(1, 3))
+
+        pos_scr = blockmax(oh)
+        neg_scr = blockmax(scr - oh)
+        int_feats, int_logits = model.interact(feat[annot], pos_scr, neg_scr,
+                                               prev_masks[annot])
+        int_mem = model.aggregate_memory(int_feats, int_mem, is_first)
+        int_logits = int_logits + (1.0 - obj_valid) * NEG_INF
+        int_probs = torch.softmax(int_logits, dim=-1)
+        # matching reference labels: the interaction argmax, overridden by
+        # the scribbles themselves (scribbled pixels are ground truth)
+        lab = int_probs.argmax(dim=-1)
+        scribbled = pos_scr.amax(dim=-1) > 0
+        lab = torch.where(scribbled, pos_scr.argmax(dim=-1), lab)
+        ref_onehot = F.one_hot(lab.reshape(-1), o).float() * obj_valid
+        ref_emb = emb[annot].reshape(-1, emb.shape[-1])
+        return int_probs, int_mem, ref_emb, ref_onehot
+
+    def _round_impl(self, feat, emb, raster, annot: int, prev_masks, gmap_mem,
+                    int_mem, is_first: bool, obj_valid, frame_valid, *,
+                    mask_hw, pack):
+        model = self.model
+        t, h, w, ce = emb.shape
+        o = prev_masks.shape[-1]
+        int_probs, int_mem, ref_emb, ref_onehot = self._interaction(
+            feat, emb, raster, annot, prev_masks, int_mem, is_first,
+            obj_valid)
+
+        # BOTH sweeps as ONE (T-1)-step schedule: step i visits frame[i];
+        # the carry resets to the interaction output where the backward
+        # sweep starts; every other frame is visited exactly once
+        idx = np.arange(t - 1)
+        fwd_len = t - 1 - annot
+        frame = np.where(idx < fwd_len, annot + 1 + idx,
+                         annot - 1 - (idx - fwd_len))
+        prev_frame = np.where(idx < fwd_len, frame - 1, frame + 1)
+        frame_t = torch.as_tensor(frame, device=emb.device)
+
+        # global matching does not depend on the carry: all T-1 frames go
+        # through ONE kernel launch against the bucketed reference
+        bucketed = prepare_ref(ref_emb, ref_onehot)
+        gm_pre = global_matching_prepared(
+            emb[frame_t].reshape(-1, ce), bucketed).reshape(t - 1, h, w, o)
+
+        # decomposed head stage 1: round-constant conv0 contributions
+        head_fp = model.head_feat_contrib(feat)
+        head_mp = model.head_mem_contrib(int_mem)
+
+        carry = int_probs
+        probs_seq, g_seq = [], []
+        for i in range(t - 1):
+            f = int(frame[i])
+            prev = int_probs if i == fwd_len else carry
+            logits, g_new = model.propagate(
+                feat[f], emb[f], ref_emb, ref_onehot, None, gmap_mem[f],
+                emb[int(prev_frame[i])], prev, int_mem, obj_valid,
+                gmap_override=gm_pre[i], head_pre=head_fp[f][None] + head_mp)
+            carry = torch.softmax(logits, dim=-1)
+            probs_seq.append(carry)
+            g_seq.append(g_new)
+
+        # scatter back to frame order; the annotated frame keeps the
+        # interaction-branch result; padding frames keep their old state
+        probs = prev_masks.clone()
+        gmap = gmap_mem.clone()
+        if t > 1:
+            probs[frame_t] = torch.stack(probs_seq)
+            gmap[frame_t] = torch.stack(g_seq)
+        probs[annot] = int_probs
+        fv = frame_valid[:, None, None, None]
+        probs = torch.where(fv, probs, prev_masks)
+        gmap = torch.where(fv, gmap, gmap_mem)
+        return probs, gmap, int_mem, self._masks_impl(probs, hw=mask_hw,
+                                                      pack=pack)
+
+    def _masks_impl(self, probs, *, hw, pack):
+        """(T, h, w, O) -> (T, H, W * pack / 8) bit-packed argmax labels."""
+        lab = resize_bilinear(probs, hw).argmax(dim=-1).to(torch.uint8)
+        return pack_labels(lab, pack)
+
+    # ---------------- host orchestration ------------------------------- #
+
+    def object_bucket(self, num_objects: int | None) -> int:
+        return object_bucket_for(num_objects, self.o)
+
+    def frame_bucket(self, num_frames: int) -> int:
+        """The smallest enabled frame bucket that fits the sequence."""
+        cfg = self.cfg
+        for b in sorted(set(cfg.eval.frame_buckets) | {cfg.eval.max_frames}):
+            if num_frames <= b <= cfg.eval.max_frames:
+                return b
+        raise ValueError(
+            f"sequence has {num_frames} frames > eval.max_frames="
+            f"{cfg.eval.max_frames}; raise max_frames (and ensure a frame "
+            "bucket covers it)")
+
+    @torch.inference_mode()
+    def start_sequence(self, images: np.ndarray,
+                       num_objects: int | None = None) -> SequenceState:
+        """Extract features of all frames (the once-per-video cost) in
+        8-frame chunks over the padded frame bucket; init memories."""
+        if images.dtype == np.uint8:
+            raise NotImplementedError(
+                "uint8 frame ingest is not ported; pass host-normalized "
+                "float frames")
+        t_actual = images.shape[0]
+        t_pad = self.frame_bucket(t_actual)
+        images = pad_image_to(images.astype(np.float32, copy=False),
+                              self.cfg.eval.pad_to)
+        if t_actual < t_pad:
+            images = np.concatenate(
+                [images, np.zeros((t_pad - t_actual, *images.shape[1:]),
+                                  np.float32)])
+        chunk = min(8, t_pad)
+        if t_pad % chunk:
+            raise ValueError(f"frame bucket {t_pad} is not a multiple of the "
+                             f"{chunk}-frame encoder chunk")
+        feats, embs = [], []
+        for i in range(0, t_pad, chunk):
+            x = torch.from_numpy(np.ascontiguousarray(images[i:i + chunk]))
+            f, e = self.model.extract_features(x.to(self.device))
+            feats.append(f)
+            embs.append(e)
+        feat = torch.cat(feats).contiguous()
+        emb = torch.cat(embs).contiguous()
+        return self._init_state(feat, emb, t_actual, num_objects)
+
+    def _init_state(self, feat, emb, t_actual: int,
+                    num_objects: int | None) -> SequenceState:
+        o = self.object_bucket(num_objects)
+        t, h, w = feat.shape[:3]
+        dev = feat.device
+        prev = torch.zeros((t, h, w, o), dtype=torch.float32, device=dev)
+        prev[..., 0] = 1.0
+        return SequenceState(
+            feat=feat, emb=emb, prev_masks=prev,
+            gmap_mem=torch.ones((t, h, w, o), dtype=torch.float32, device=dev),
+            int_mem=torch.zeros((o, h, w, self.cfg.model.ma_channels),
+                                dtype=torch.float32, device=dev),
+            round_idx=0, num_frames=t_actual)
+
+    def reset_rounds(self, state: SequenceState,
+                     num_objects: int | None = None) -> SequenceState:
+        """New-item state reusing the sequence's cached features."""
+        release_state(state, keep_features=True)
+        return self._init_state(state.feat, state.emb, state.num_frames,
+                                num_objects)
+
+    def run_round(self, state: SequenceState, scribbles_json: Dict[str, Any],
+                  image_hw: tuple[int, int], num_objects: int) -> np.ndarray:
+        """One interaction round. Returns (T_actual, H, W) int32 labels."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        af = annotated_frames(scribbles_json)
+        annot = af[0] if af else 0
+        one_frame = {"sequence": scribbles_json["sequence"],
+                     "scribbles": [scribbles_json["scribbles"][annot]]}
+        raster = scribbles2mask(one_frame, image_hw)[0]
+        raster = np.pad(raster,
+                        [(0, (-image_hw[0]) % cfg.eval.pad_to),
+                         (0, (-image_hw[1]) % cfg.eval.pad_to)],
+                        constant_values=-1)
+        handle = self.dispatch_round(state, raster, annot, num_objects)
+        masks = self.collect_round(handle, image_hw)
+        self.round_latencies.append(time.perf_counter() - t0)
+        return masks
+
+    @torch.inference_mode()
+    def dispatch_round(self, state: SequenceState, raster: np.ndarray,
+                       annot: int, num_objects: int) -> RoundHandle:
+        """Enqueue one round's device work with no device->host transfer,
+        updating `state` in place. `raster` is the annotated frame's
+        scribble raster padded to `pad_to` (-1 = unscribbled)."""
+        cfg = self.cfg
+        dev = self.device
+        o_bucket = state.prev_masks.shape[-1]
+        if num_objects + 1 > o_bucket:
+            raise ValueError(f"{num_objects} objects do not fit the object "
+                             f"bucket {o_bucket} (background included)")
+        obj_valid = torch.zeros((o_bucket,), dtype=torch.float32, device=dev)
+        obj_valid[:num_objects + 1] = 1.0
+        t_bucket = state.feat.shape[0]
+        frame_valid = torch.arange(t_bucket, device=dev) < state.num_frames
+        ms = cfg.eval.mask_stride
+        mask_hw = (raster.shape[0] // ms, raster.shape[1] // ms)
+        pk = aligned_mask_bits(num_objects + 1, mask_hw[1])
+        raster_t = torch.as_tensor(np.asarray(raster, np.int8), device=dev)
+        probs, gmap, int_mem, masks = self._round_impl(
+            state.feat, state.emb, raster_t, int(annot), state.prev_masks,
+            state.gmap_mem, state.int_mem, state.round_idx == 0, obj_valid,
+            frame_valid, mask_hw=mask_hw, pack=pk)
+        state.prev_masks, state.gmap_mem, state.int_mem = probs, gmap, int_mem
+        state.round_idx += 1
+        return RoundHandle(pk=pk, nf=state.num_frames, masks=masks)
+
+    def collect_round(self, handle: RoundHandle,
+                      image_hw: tuple[int, int]) -> np.ndarray:
+        """Download + unpack a dispatched round's (T_actual, H, W) labels."""
+        masks = unpack_labels(handle.masks[:handle.nf].cpu().numpy(),
+                              handle.pk)
+        ms = self.cfg.eval.mask_stride
+        if ms > 1:
+            masks = np.repeat(np.repeat(masks, ms, axis=1), ms, axis=2)
+        h_img, w_img = image_hw
+        return masks[:, :h_img, :w_img].astype(np.int32)
+
+    # ---------------- full benchmark ----------------------------------- #
+
+    def run_session(self, session, on_masks=None) -> Dict[str, Any]:
+        """Drive an InteractiveSession to completion (SURVEY.md §4.1).
+        One live sequence state; features are reused across a sequence's
+        scribble sets, so the encoder runs once per video.
+
+        on_masks(seq, set_idx, round_idx, masks): optional per-submission
+        callback."""
+        st: SequenceState | None = None
+        st_key = None          # (sequence, set) the live state serves
+        st_seq = None          # sequence whose features st holds
+        hw = None              # full-res (H, W) of st_seq
+        with session as sess:
+            while sess.next():
+                seq, scribbles, _ = sess.get_scribbles(only_last=True)
+                key = sess.current
+                if key != st_key:
+                    if seq == st_seq:
+                        st = self.reset_rounds(
+                            st, sess.dataset.num_objects(seq))
+                    else:
+                        if st is not None:
+                            release_state(st)
+                        images = sess.dataset.images(seq)
+                        hw = images.shape[1:3]
+                        st = self.start_sequence(
+                            images, sess.dataset.num_objects(seq))
+                        st_seq = seq
+                    st_key = key
+                masks = self.run_round(
+                    st, scribbles, hw, sess.dataset.num_objects(seq))
+                if on_masks is not None:
+                    on_masks(seq, key[1], st.round_idx - 1, masks)
+                sess.submit_masks(masks)
+        if st is not None:
+            release_state(st)
+        return session.get_global_summary()

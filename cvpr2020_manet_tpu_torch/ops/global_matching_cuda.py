@@ -1,0 +1,194 @@
+"""Global matching against a bucketed reference: the CUDA kernel and its
+plain version.
+
+Port of the JAX package's `ops/matching_pallas.py` (`BucketedRef`,
+`_bucket_layout`, `prepare_ref`, `global_matching_prepared`). The
+reference pixels are sorted by object ONCE per round into block_k-row
+blocks, one object per block, with -2k in the model dtype and the f32 |k|^2
+(1e8 on padding rows) precomputed; the matching then needs one product and
+one add per (query, key) pair and one min per tile:
+
+    min_k |q - k|^2 = |q|^2 + min_k (|k|^2 - 2 q.k)
+
+`global_matching_prepared` launches the hand-written kernel
+(`csrc/global_matching.cu`, which replaces the TPU kernel
+`matching_pallas.py::_matching_kernel`) for a CUDA query, and runs the
+plain version below for a CPU query. There is no fallback between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from cvpr2020_manet_tpu_torch.kernels import build
+from cvpr2020_manet_tpu_torch.ops.matching import (
+    WRONG_LABEL_PADDING_DISTANCE, normalize_distance)
+
+DEFAULT_TK = 512
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class BucketedRef(NamedTuple):
+    """Reference memory sorted into per-object blocks (device tensors)."""
+    neg2pixels: torch.Tensor  # (NKB * TK, C_pad) = -2 * embeddings, model dtype
+    sqnorm: torch.Tensor      # (NKB, TK) f32 = |k|^2 (1e8 on padding rows)
+    block_obj: torch.Tensor   # (NKB,) int32: object of each block (o_pad = slack)
+    src_idx: torch.Tensor     # (NKB * TK,) int32: source ref row (-1 = padding)
+    num_objects: int          # unpadded object count
+
+
+def _bucket_layout(ref_onehot: torch.Tensor, ref_valid: torch.Tensor | None,
+                   block_k: int):
+    """Per-object bucketing of reference pixels. Returns (src_idx, block_obj,
+    nkb, o, o_pad): src_idx (NKB*TK,) int32 with -1 on padding rows,
+    block_obj (NKB,) int32 with the o_pad sentinel on slack blocks."""
+    nk, o = ref_onehot.shape
+    dev = ref_onehot.device
+    o_pad = _round_up(o, 8)
+    nkb = _round_up(nk, block_k) // block_k + o_pad     # static upper bound
+
+    gate = ref_onehot.float()
+    if ref_valid is not None:
+        gate = gate * ref_valid.float()[:, None]
+    has_obj = gate.amax(dim=1) > 0
+    labels = torch.where(has_obj, gate.argmax(dim=1),
+                         torch.full_like(has_obj, o_pad, dtype=torch.long))
+
+    counts = torch.bincount(labels, minlength=o_pad + 1)[:o_pad]
+    blk_per_obj = (counts + block_k - 1) // block_k
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    start_blk = torch.cat([zero, torch.cumsum(blk_per_obj, 0)[:-1]])
+    seg_start = torch.cat([zero, torch.cumsum(counts, 0)[:-1]])
+
+    order = torch.argsort(labels, stable=True)
+    lab_sorted = labels[order]
+    rank = torch.arange(nk, device=dev)
+    lab_c = torch.clamp(lab_sorted, 0, o_pad - 1)
+    dest = start_blk[lab_c] * block_k + (rank - seg_start[lab_c])
+    # unlabelled pixels land on one spare row past the end, sliced off below
+    dest = torch.where(lab_sorted >= o_pad,
+                       torch.full_like(dest, nkb * block_k), dest)
+    src_idx = torch.full((nkb * block_k + 1,), -1, dtype=torch.int32,
+                         device=dev)
+    src_idx[dest] = order.to(torch.int32)
+    src_idx = src_idx[:-1]
+
+    blk = torch.arange(nkb, device=dev)
+    total_blocks = blk_per_obj.sum()
+    block_obj = torch.searchsorted(start_blk, blk, right=True) - 1
+    block_obj = torch.where(blk < total_blocks, block_obj,
+                            torch.full_like(block_obj, o_pad))
+    return src_idx, block_obj.to(torch.int32), nkb, o, o_pad
+
+
+def prepare_ref(ref: torch.Tensor, ref_onehot: torch.Tensor,
+                ref_valid: torch.Tensor | None = None, *,
+                block_k: int = DEFAULT_TK) -> BucketedRef:
+    """Sort reference pixels (Nk, C) by object into block_k-aligned
+    buckets. Run once per interaction round; the sweep reuses it."""
+    nk, c = ref.shape
+    c_pad = _round_up(c, 128)
+    src_idx, block_obj, nkb, o, _ = _bucket_layout(ref_onehot, ref_valid,
+                                                   block_k)
+    ref_pad = F.pad(ref, (0, c_pad - c))
+    filled = src_idx >= 0
+    gather = torch.clamp(src_idx, 0, nk - 1).long()
+    neg2 = torch.where(filled[:, None], -2.0 * ref_pad[gather],
+                       torch.zeros((), dtype=ref.dtype, device=ref.device))
+    kn_rows = ref_pad.float().square().sum(-1)
+    sqnorm = torch.where(filled, kn_rows[gather],
+                         torch.full_like(kn_rows[gather],
+                                         WRONG_LABEL_PADDING_DISTANCE))
+    return BucketedRef(neg2pixels=neg2.contiguous(),
+                       sqnorm=sqnorm.reshape(nkb, block_k).contiguous(),
+                       block_obj=block_obj, src_idx=src_idx, num_objects=o)
+
+
+def global_matching_prepared_plain(query: torch.Tensor,
+                                   bucketed: BucketedRef) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: one matmul per reference block
+    (f32 accumulation; bf16 products are exact in f32), a running min per
+    object, then |q|^2, clamp and normalize. -> (Nq, O) f32."""
+    nq, c = query.shape
+    c_pad = bucketed.neg2pixels.shape[1]
+    o = bucketed.num_objects
+    block_k = bucketed.sqnorm.shape[1]
+    q = F.pad(query, (0, c_pad - c)).float()
+    acc = torch.full((nq, o), WRONG_LABEL_PADDING_DISTANCE,
+                     dtype=torch.float32, device=query.device)
+    for j, obj in enumerate(bucketed.block_obj.tolist()):
+        if obj >= o:
+            continue                                     # slack block
+        k = bucketed.neg2pixels[j * block_k:(j + 1) * block_k].float()
+        e = q @ k.T + bucketed.sqnorm[j][None, :]
+        acc[:, obj] = torch.minimum(acc[:, obj], e.amin(dim=1))
+    qn = q.square().sum(-1, keepdim=True)
+    d = torch.clamp(torch.clamp(acc + qn, min=0.0),
+                    max=WRONG_LABEL_PADDING_DISTANCE)
+    return normalize_distance(d)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p]
+
+
+def global_matching_prepared(query: torch.Tensor,
+                             bucketed: BucketedRef) -> torch.Tensor:
+    """Matching of query rows (Nq, C) against a prepared reference ->
+    (Nq, O) f32. Launches the CUDA kernel for a CUDA query; runs the plain
+    version for a CPU query."""
+    if query.device.type == "cpu":
+        return global_matching_prepared_plain(query, bucketed)
+    if query.device.type != "cuda":
+        raise ValueError(f"unsupported device {query.device}")
+    neg2, sqnorm, block_obj = (bucketed.neg2pixels, bucketed.sqnorm,
+                               bucketed.block_obj)
+    nq, c = query.shape
+    c_pad = neg2.shape[1]
+    nkb, block_k = sqnorm.shape
+    o = bucketed.num_objects
+    if query.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"query dtype {query.dtype}: f32 or bf16 only")
+    if neg2.dtype != query.dtype:
+        raise TypeError(f"reference dtype {neg2.dtype} != query {query.dtype}")
+    if sqnorm.dtype != torch.float32 or block_obj.dtype != torch.int32:
+        raise TypeError("sqnorm must be f32 and block_obj int32")
+    if c > c_pad or neg2.shape[0] != nkb * block_k or block_obj.shape != (nkb,):
+        raise ValueError("query / bucketed reference shapes disagree")
+    if c_pad != 128:
+        raise ValueError(f"the kernel takes 128 channels, got {c_pad}")
+    for t in (neg2, sqnorm, block_obj):
+        if t.device != query.device or not t.is_contiguous():
+            raise ValueError("bucketed reference must be contiguous on the "
+                             "query's device")
+    q = F.pad(query, (0, c_pad - c)).contiguous()
+    for name, t in (("query", q), ("neg2pixels", neg2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty((nq, o), dtype=torch.float32, device=query.device)
+    if nq == 0:
+        return out
+    fn = build.kernel_function("global_matching", "manet_global_matching",
+                               _ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), neg2.data_ptr(), sqnorm.data_ptr(),
+                 block_obj.data_ptr(), out.data_ptr(), nq, c_pad, nkb,
+                 block_k, o, int(q.dtype == torch.bfloat16),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch("global_matching", err)
+    return out
+
+
+def global_matching_cuda(query: torch.Tensor, ref: torch.Tensor,
+                         ref_onehot: torch.Tensor,
+                         ref_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Drop-in for ops.matching.global_matching: prepare + match."""
+    return global_matching_prepared(
+        query, prepare_ref(ref, ref_onehot, ref_valid))
