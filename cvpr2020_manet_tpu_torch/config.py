@@ -63,8 +63,8 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training hyperparams (SURVEY.md C17/C18). Training is not ported
-    yet; the dataclass is kept so configs have the same fields."""
+    """Training hyperparams (SURVEY.md C17/C18), read by
+    `engine/train_stage1.py` and `engine/train_stage2.py`."""
 
     crop_size: Tuple[int, int] = (416, 416)
     batch_size: int = 8

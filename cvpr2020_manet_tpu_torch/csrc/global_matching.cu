@@ -22,6 +22,20 @@
 // Nq C + Nk C input elements, far above the card's ridge point, so the
 // function is bound by operations (989 TFLOP/s bf16 on the tensor cores).
 //
+// With ARGMIN (entry `manet_global_matching_argmin`) the kernels also
+// return each minimum's row in the bucketed layout (-1 for an object
+// without rows): this replaces the TPU kernel `_matching_kernel_argmin`
+// (called by `global_matching_prepared_argmin`), the forward of the
+// training path's argmin-routed matching. Ties go to the lowest bucketed
+// row, as on the TPU: a thread visits its keys in ascending row order and
+// keeps the first of equal minima (strict <), and the reduction across
+// threads takes the lower row of equal values. The argmin variants hold
+// the running (min, row) of the current object in registers, because an
+// object's blocks are consecutive: when its last block is done the row's
+// owner thread writes the result straight to `out` / `idx` (prefilled
+// with the empty-object answer). They need no (queries, O) accumulator in
+// shared memory, which would not fit beside the key tiles.
+//
 // Two variants:
 // - bf16 with C = 128 (the model's path): tensor cores through
 //   `mma.sync.m16n8k16` (bf16 in, f32 accumulate). A block of 4 warps owns
@@ -78,24 +92,47 @@ __device__ __forceinline__ int next_block(const int* __restrict__ block_obj,
   return kb;
 }
 
+// Fold (v, i) with the lane `mask` away: the smaller value, and of equal
+// values the lower row (-1, no row yet, counts as the highest).
+__device__ __forceinline__ void argmin_xor(float& v, int& i, int mask) {
+  const float ov = __shfl_xor_sync(0xffffffffu, v, mask);
+  const int oi = __shfl_xor_sync(0xffffffffu, i, mask);
+  if (ov < v || (ov == v && static_cast<unsigned>(oi) < static_cast<unsigned>(i))) {
+    v = ov;
+    i = oi;
+  }
+}
+
+// Keep the candidate `c` of bucketed row `row` if it is below the running
+// minimum (the first of equal minima stays).
+__device__ __forceinline__ void keep_min(float& v, int& i, float c, int row) {
+  if (c < v) {
+    v = c;
+    i = row;
+  }
+}
+
+template <bool ARGMIN>
 __global__ void __launch_bounds__(MMA_WARPS * 32, 3)
 global_matching_mma_bf16(const __nv_bfloat16* __restrict__ query,
                          const __nv_bfloat16* __restrict__ neg2,
                          const float* __restrict__ sqnorm,
                          const int* __restrict__ block_obj,
-                         float* __restrict__ out,
+                         float* __restrict__ out, int* __restrict__ idx,
                          int64_t nq, int nkb, int block_k, int num_obj) {
   __shared__ __align__(16) __nv_bfloat16 ks[2][TILE_K * MMA_PITCH];
-  __shared__ float acc[MMA_TQ][O_MAX];
-  __shared__ float qn[MMA_TQ];
+  __shared__ float acc[ARGMIN ? 1 : MMA_TQ][O_MAX];
+  __shared__ float qn[ARGMIN ? 1 : MMA_TQ];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
   const int64_t q0 = static_cast<int64_t>(blockIdx.x) * MMA_TQ;
 
-  for (int i = tid; i < MMA_TQ * O_MAX; i += MMA_WARPS * 32)
-    (&acc[0][0])[i] = manet::kBig;
+  if constexpr (!ARGMIN) {
+    for (int i = tid; i < MMA_TQ * O_MAX; i += MMA_WARPS * 32)
+      (&acc[0][0])[i] = manet::kBig;
+  }
 
   // A fragments of this warp's 32 queries (rows g, g+8 of two m16 tiles)
   // and their partial |q|^2 over the channels this lane holds.
@@ -117,6 +154,30 @@ global_matching_mma_bf16(const __nv_bfloat16* __restrict__ query,
         const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&hi);
         const float2 lf = __bfloat1622float2(l2), hf = __bfloat1622float2(h2);
         qsq[m][half] += lf.x * lf.x + lf.y * lf.y + hf.x * hf.x + hf.y * hf.y;
+      }
+    }
+  }
+
+  // (argmin) the full |q|^2 of each row in every lane of its quad, and
+  // the empty-object answer prefilled by the quad's lane 0, which also
+  // writes the row's results later (same thread, program order)
+  int rarg[2][2] = {{-1, -1}, {-1, -1}};
+  if constexpr (ARGMIN) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v = qsq[m][half];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        qsq[m][half] = v;
+        const int64_t row = q0 + warp * MMA_ROWS + m * 16 + g + half * 8;
+        if (t == 0 && row < nq) {
+          for (int o = 0; o < num_obj; ++o) {
+            out[row * num_obj + o] = manet::finish_distance(manet::kBig, v);
+            idx[row * num_obj + o] = -1;
+          }
+        }
       }
     }
   }
@@ -168,13 +229,44 @@ global_matching_mma_bf16(const __nv_bfloat16* __restrict__ query,
         const float2 s2 = *reinterpret_cast<const float2*>(sq + (ns + n) * 8 + 2 * t);
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
-          rmin[m][0] = fminf(rmin[m][0], fminf(d[n][m][0] + s2.x, d[n][m][1] + s2.y));
-          rmin[m][1] = fminf(rmin[m][1], fminf(d[n][m][2] + s2.x, d[n][m][3] + s2.y));
+          if constexpr (ARGMIN) {
+            // columns 2t, 2t+1 of subtile ns+n, in ascending row order
+            const int col = kb * block_k + kt + (ns + n) * 8 + 2 * t;
+            keep_min(rmin[m][0], rarg[m][0], d[n][m][0] + s2.x, col);
+            keep_min(rmin[m][0], rarg[m][0], d[n][m][1] + s2.y, col + 1);
+            keep_min(rmin[m][1], rarg[m][1], d[n][m][2] + s2.x, col);
+            keep_min(rmin[m][1], rarg[m][1], d[n][m][3] + s2.y, col + 1);
+          } else {
+            rmin[m][0] = fminf(rmin[m][0], fminf(d[n][m][0] + s2.x, d[n][m][1] + s2.y));
+            rmin[m][1] = fminf(rmin[m][1], fminf(d[n][m][2] + s2.x, d[n][m][3] + s2.y));
+          }
         }
       }
     }
 
-    if (nkb2 != kb) {   // the k-block ends: fold its minima into its object
+    if constexpr (ARGMIN) {
+      const int obj = block_obj[kb];
+      // the object's last block: its blocks are consecutive
+      if (nkb2 >= nkb || block_obj[nkb2] != obj) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float v = rmin[m][half];
+            int i = rarg[m][half];
+            argmin_xor(v, i, 1);
+            argmin_xor(v, i, 2);
+            const int64_t row = q0 + warp * MMA_ROWS + m * 16 + g + half * 8;
+            if (t == 0 && row < nq) {
+              out[row * num_obj + obj] = manet::finish_distance(v, qsq[m][half]);
+              idx[row * num_obj + obj] = i;
+            }
+            rmin[m][half] = manet::kBig;
+            rarg[m][half] = -1;
+          }
+        }
+      }
+    } else if (nkb2 != kb) {   // the k-block ends: fold its minima into its object
       const int obj = block_obj[kb];
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
@@ -196,22 +288,23 @@ global_matching_mma_bf16(const __nv_bfloat16* __restrict__ query,
     kt = nkt;
     buf ^= 1;
   }
-
+  if constexpr (!ARGMIN) {   // (argmin: every object was written as it ended)
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < 2; ++m) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float v = qsq[m][half];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (t == 0) qn[warp * MMA_ROWS + m * 16 + g + half * 8] = v;
+      for (int half = 0; half < 2; ++half) {
+        float v = qsq[m][half];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0) qn[warp * MMA_ROWS + m * 16 + g + half * 8] = v;
+      }
     }
-  }
-  __syncthreads();
-  for (int i = tid; i < MMA_TQ * num_obj; i += MMA_WARPS * 32) {
-    const int row = i / num_obj, o = i - row * num_obj;
-    const int64_t gq = q0 + row;
-    if (gq < nq) out[gq * num_obj + o] = manet::finish_distance(acc[row][o], qn[row]);
+    __syncthreads();
+    for (int i = tid; i < MMA_TQ * num_obj; i += MMA_WARPS * 32) {
+      const int row = i / num_obj, o = i - row * num_obj;
+      const int64_t gq = q0 + row;
+      if (gq < nq) out[gq * num_obj + o] = manet::finish_distance(acc[row][o], qn[row]);
+    }
   }
 }
 
@@ -223,16 +316,17 @@ constexpr int FMA_C_MAX = 128;   // channels held for the query tile
 constexpr int FMA_PAD = 4;       // keeps float4 rows aligned, spreads banks
 constexpr int FMA_THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
 
+template <bool ARGMIN>
 __global__ void __launch_bounds__(FMA_THREADS)
 global_matching_fma(const float* __restrict__ query,
                     const float* __restrict__ neg2,
                     const float* __restrict__ sqnorm,
                     const int* __restrict__ block_obj,
-                    float* __restrict__ out,
+                    float* __restrict__ out, int* __restrict__ idx,
                     int64_t nq, int c, int nkb, int block_k, int num_obj) {
   __shared__ __align__(16) float qs[FMA_C_MAX][FMA_TQ + FMA_PAD];  // transposed
   __shared__ __align__(16) float kc[FMA_CK][TILE_K + FMA_PAD];     // transposed
-  __shared__ float acc[FMA_TQ][O_MAX];
+  __shared__ float acc[ARGMIN ? 1 : FMA_TQ][O_MAX];
   __shared__ float qn[FMA_TQ];
 
   const int tid = threadIdx.x;
@@ -245,12 +339,37 @@ global_matching_fma(const float* __restrict__ query,
     const int64_t gq = q0 + row;
     qs[col][row] = gq < nq ? query[gq * c + col] : 0.f;
   }
-  for (int i = tid; i < FMA_TQ * O_MAX; i += FMA_THREADS) (&acc[0][0])[i] = manet::kBig;
+  if constexpr (ARGMIN) {
+    // |q|^2 first, and the empty-object answer prefilled by the thread
+    // (tx == 0) that writes the row's results later
+    __syncthreads();
+    if (tid < FMA_TQ) {
+      float s = 0.f;
+      for (int col = 0; col < c; ++col) s = fmaf(qs[col][tid], qs[col][tid], s);
+      qn[tid] = s;
+    }
+    __syncthreads();
+    if (tx == 0) {
+      for (int i = 0; i < 4; ++i) {
+        const int64_t gq = q0 + ty * 4 + i;
+        if (gq >= nq) continue;
+        for (int o = 0; o < num_obj; ++o) {
+          out[gq * num_obj + o] = manet::finish_distance(manet::kBig, qn[ty * 4 + i]);
+          idx[gq * num_obj + o] = -1;
+        }
+      }
+    }
+  } else {
+    for (int i = tid; i < FMA_TQ * O_MAX; i += FMA_THREADS) (&acc[0][0])[i] = manet::kBig;
+  }
 
+  // running minima (and rows) of this thread's queries: per k-block, or
+  // (argmin) per object, whose blocks are consecutive
+  float bmin[4] = {manet::kBig, manet::kBig, manet::kBig, manet::kBig};
+  int barg[4] = {-1, -1, -1, -1};
   for (int kb = 0; kb < nkb; ++kb) {
     const int obj = block_obj[kb];
     if (obj < 0 || obj >= num_obj) continue;  // slack block (uniform branch)
-    float bmin[4] = {manet::kBig, manet::kBig, manet::kBig, manet::kBig};
     for (int kt = 0; kt < block_k; kt += TILE_K) {
       const int64_t k0 = static_cast<int64_t>(kb) * block_k + kt;
       float r[4][4] = {};
@@ -279,33 +398,94 @@ global_matching_fma(const float* __restrict__ query,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) bmin[i] = fminf(bmin[i], r[i][jj] + sq[jj]);
+        for (int jj = 0; jj < 4; ++jj) {
+          if constexpr (ARGMIN)
+            keep_min(bmin[i], barg[i], r[i][jj] + sq[jj],
+                     static_cast<int>(k0) + tx * 4 + jj);
+          else
+            bmin[i] = fminf(bmin[i], r[i][jj] + sq[jj]);
+        }
     }
-    // min over the 16 threads (lane bits 0..3) that share these queries
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        bmin[i] = fminf(bmin[i], __shfl_xor_sync(0xffffffffu, bmin[i], off));
-    if (tx == 0) {
+    if constexpr (ARGMIN) {
+      if (kb + 1 < nkb && block_obj[kb + 1] == obj) continue;  // object goes on
+      // (min, row) over the 16 threads (lane bits 0..3) sharing these queries
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        acc[ty * 4 + i][obj] = fminf(acc[ty * 4 + i][obj], bmin[i]);
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) argmin_xor(bmin[i], barg[i], off);
+      if (tx == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int64_t gq = q0 + ty * 4 + i;
+          if (gq < nq) {
+            out[gq * num_obj + obj] = manet::finish_distance(bmin[i], qn[ty * 4 + i]);
+            idx[gq * num_obj + obj] = barg[i];
+          }
+        }
+      }
+    } else {
+      // min over the 16 threads (lane bits 0..3) that share these queries
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          bmin[i] = fminf(bmin[i], __shfl_xor_sync(0xffffffffu, bmin[i], off));
+      if (tx == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[ty * 4 + i][obj] = fminf(acc[ty * 4 + i][obj], bmin[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      bmin[i] = manet::kBig;
+      barg[i] = -1;
     }
   }
-  __syncthreads();
 
-  if (tid < FMA_TQ) {
-    float s = 0.f;
-    for (int col = 0; col < c; ++col) s = fmaf(qs[col][tid], qs[col][tid], s);
-    qn[tid] = s;
+  if constexpr (!ARGMIN) {
+    __syncthreads();
+    if (tid < FMA_TQ) {
+      float s = 0.f;
+      for (int col = 0; col < c; ++col) s = fmaf(qs[col][tid], qs[col][tid], s);
+      qn[tid] = s;
+    }
+    __syncthreads();
+    for (int i = tid; i < FMA_TQ * num_obj; i += FMA_THREADS) {
+      const int row = i / num_obj, o = i - row * num_obj;
+      const int64_t gq = q0 + row;
+      if (gq < nq) out[gq * num_obj + o] = manet::finish_distance(acc[row][o], qn[row]);
+    }
   }
-  __syncthreads();
-  for (int i = tid; i < FMA_TQ * num_obj; i += FMA_THREADS) {
-    const int row = i / num_obj, o = i - row * num_obj;
-    const int64_t gq = q0 + row;
-    if (gq < nq) out[gq * num_obj + o] = manet::finish_distance(acc[row][o], qn[row]);
+}
+
+template <bool ARGMIN>
+int launch(const void* query, const void* neg2, const void* sqnorm,
+           const void* block_obj, void* out, void* idx, long long nq, int c,
+           int nkb, int block_k, int num_obj, int is_bf16, void* stream) {
+  if (nq <= 0 || c <= 0 || c > FMA_C_MAX || c % FMA_CK != 0 || block_k <= 0 ||
+      block_k % TILE_K != 0 || num_obj <= 0 || num_obj > O_MAX || nkb < 0 ||
+      (is_bf16 && c != MMA_C) || (ARGMIN && idx == nullptr) ||
+      (ARGMIN && static_cast<long long>(nkb) * block_k > 0x7fffffffLL))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* bo = static_cast<const int*>(block_obj);
+  const auto* sq = static_cast<const float*>(sqnorm);
+  auto* o = static_cast<float*>(out);
+  auto* ix = static_cast<int*>(idx);
+  if (is_bf16) {
+    const dim3 grid(static_cast<unsigned>((nq + MMA_TQ - 1) / MMA_TQ));
+    global_matching_mma_bf16<ARGMIN><<<grid, MMA_WARPS * 32, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(query),
+        static_cast<const __nv_bfloat16*>(neg2), sq, bo, o, ix, nq, nkb,
+        block_k, num_obj);
+  } else {
+    const dim3 grid(static_cast<unsigned>((nq + FMA_TQ - 1) / FMA_TQ));
+    global_matching_fma<ARGMIN><<<grid, FMA_THREADS, 0, s>>>(
+        static_cast<const float*>(query), static_cast<const float*>(neg2), sq,
+        bo, o, ix, nq, c, nkb, block_k, num_obj);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -319,25 +499,16 @@ extern "C" int manet_global_matching(const void* query, const void* neg2,
                                      void* out, long long nq, int c, int nkb,
                                      int block_k, int num_obj, int is_bf16,
                                      void* stream) {
-  if (nq <= 0 || c <= 0 || c > FMA_C_MAX || c % FMA_CK != 0 || block_k <= 0 ||
-      block_k % TILE_K != 0 || num_obj <= 0 || num_obj > O_MAX || nkb < 0 ||
-      (is_bf16 && c != MMA_C))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* bo = static_cast<const int*>(block_obj);
-  const auto* sq = static_cast<const float*>(sqnorm);
-  auto* o = static_cast<float*>(out);
-  if (is_bf16) {
-    const dim3 grid(static_cast<unsigned>((nq + MMA_TQ - 1) / MMA_TQ));
-    global_matching_mma_bf16<<<grid, MMA_WARPS * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(query),
-        static_cast<const __nv_bfloat16*>(neg2), sq, bo, o, nq, nkb, block_k,
-        num_obj);
-  } else {
-    const dim3 grid(static_cast<unsigned>((nq + FMA_TQ - 1) / FMA_TQ));
-    global_matching_fma<<<grid, FMA_THREADS, 0, s>>>(
-        static_cast<const float*>(query), static_cast<const float*>(neg2), sq,
-        bo, o, nq, c, nkb, block_k, num_obj);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(query, neg2, sqnorm, block_obj, out, nullptr, nq, c,
+                       nkb, block_k, num_obj, is_bf16, stream);
+}
+
+// As manet_global_matching, plus idx (nq, num_obj) int32: the bucketed
+// row of each minimum, -1 for an object without rows.
+extern "C" int manet_global_matching_argmin(
+    const void* query, const void* neg2, const void* sqnorm,
+    const void* block_obj, void* out, void* idx, long long nq, int c, int nkb,
+    int block_k, int num_obj, int is_bf16, void* stream) {
+  return launch<true>(query, neg2, sqnorm, block_obj, out, idx, nq, c, nkb,
+                      block_k, num_obj, is_bf16, stream);
 }

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each source under `csrc/` (one per kernel) compiles on its own into a
-shared library with a plain C interface:
+Each source under `csrc/` compiles on its own into a shared library with a
+plain C interface (a source may hold several kernels, each with its own C
+entry, as the argmin variants sit beside the kernels they extend):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/torch_kernels/lib<name>-<hash>.so <name>.cu
@@ -11,9 +12,9 @@ an edited source rebuilds and a current one is reused. The build runs at
 first use (or all at once, in parallel, through `build_all`). A missing
 nvcc or a failed build raises: the CUDA path has no fallback.
 
-`LAUNCHES` counts successful kernel launches per kernel; each wrapper adds
-one right after its launch and nowhere else, so a run can show which
-kernels its main path went through.
+`LAUNCHES` counts successful kernel launches per kernel (the keys of
+`KERNELS`); each wrapper adds one right after its launch and nowhere else,
+so a run can show which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -31,12 +32,18 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
-KERNELS = ("global_matching", "local_matching")
+# kernel (launch counter) -> the source stem under csrc/ that holds it
+KERNELS = {"global_matching": "global_matching",
+           "global_matching_argmin": "global_matching",
+           "local_matching": "local_matching",
+           "local_matching_argmin": "local_matching"}
+SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
-# ptxas report (registers, shared memory, spills) of each fresh build
+# ptxas report (registers, shared memory, spills) of each fresh build, by
+# source
 BUILD_LOGS: dict[str, str] = {}
 
 _lock = threading.Lock()
@@ -86,25 +93,26 @@ def _build(name: str) -> str:
 
 
 def build_all() -> float:
-    """Build every kernel that is not built yet, one nvcc per source, all
+    """Build every source that is not built yet, one nvcc per source, all
     started together. Returns the wall seconds it took."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        for fut in [pool.submit(_build, name) for name in KERNELS]:
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        for fut in [pool.submit(_build, name) for name in SOURCES]:
             fut.result()
     return time.perf_counter() - t0
 
 
 def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry `symbol` of kernel library `name`, built and loaded on
+    """The C entry `symbol` of kernel `name`'s library, built and loaded on
     first use. Every entry returns the cudaError_t of its launch."""
     key = (name, symbol)
     with _lock:
         fn = _functions.get(key)
         if fn is None:
-            lib = _libs.get(name)
+            source = KERNELS[name]
+            lib = _libs.get(source)
             if lib is None:
-                lib = _libs[name] = ctypes.CDLL(_build(name))
+                lib = _libs[source] = ctypes.CDLL(_build(source))
             fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int

@@ -14,7 +14,10 @@ permutes are free and cuDNN reads the channels-last strides).
 
 Matching inside `propagate` goes through the bucketed global-matching and
 the local-matching wrappers: the CUDA kernels for CUDA tensors, their plain
-versions for CPU tensors.
+versions for CPU tensors. With `trainable_matching=True` (the trainers) it
+goes through the argmin-routed `torch.autograd.Function`s of
+`ops/trainable.py` instead, whose forwards are the kernels' argmin
+variants; inference keeps the leaner kernels.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
     global_matching_cuda)
 from cvpr2020_manet_tpu_torch.ops.local_matching_cuda import (
     local_matching_cuda)
+from cvpr2020_manet_tpu_torch.ops.trainable import (
+    GlobalMatchingTrainable, LocalMatchingTrainable)
 
 NEG_INF = -1e9   # logit of an invalid (padding) object
 
@@ -52,11 +57,15 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class MANet(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
+                 trainable_matching: bool = False):
         """Weights are drawn on the CPU from `torch.Generator` seeded with
         `seed` (the same weights on every device), then moved to `device`
-        (`cuda` unless given)."""
+        (`cuda` unless given). `trainable_matching`: match through the
+        argmin-routed Functions (training), as the JAX model's flag of the
+        same name does."""
         super().__init__()
+        self.trainable_matching = trainable_matching
         if cfg.norm != "gn" or cfg.head_norm != "gn":
             raise NotImplementedError(
                 f"norm={cfg.norm!r}, head_norm={cfg.head_norm!r}: only 'gn' "
@@ -148,8 +157,8 @@ class MANet(nn.Module):
         if gmap_override is not None:
             gm = gmap_override
         else:
-            gm = global_matching_cuda(emb_t.reshape(-1, ce), ref_emb,
-                                      ref_onehot, ref_valid).reshape(h, w, o)
+            gm = self._global_matching(emb_t.reshape(-1, ce), ref_emb,
+                                       ref_onehot, ref_valid).reshape(h, w, o)
         gm = torch.minimum(gm, global_map_prev)            # C8 min-fusion
 
         # local matching against the previous frame's hard labels, at
@@ -158,13 +167,12 @@ class MANet(nn.Module):
         s = cfg.local_downsample
         if s > 1:
             hw = (h // s, w // s)
-            lm = local_matching_cuda(
+            lm = self._local_matching(
                 resize_bilinear(emb_t, hw), resize_bilinear(prev_emb, hw),
-                resize_nearest(prev_onehot, hw), window=cfg.local_window)
+                resize_nearest(prev_onehot, hw))
             lm = resize_bilinear(lm, (h, w))
         else:
-            lm = local_matching_cuda(emb_t, prev_emb, prev_onehot,
-                                     window=cfg.local_window)
+            lm = self._local_matching(emb_t, prev_emb, prev_onehot)
 
         dt = feature_t.dtype
         maps = [_fold_maps(gm).to(dt), _fold_maps(lm).to(dt),
@@ -181,3 +189,18 @@ class MANet(nn.Module):
         logits = logits[:, 0].permute(1, 2, 0)             # (h, w, O) f32
         logits = logits + (1.0 - obj_valid) * NEG_INF
         return logits, gm
+
+    def _global_matching(self, query, ref_emb, ref_onehot, ref_valid):
+        if self.trainable_matching:
+            gate = ref_onehot
+            if ref_valid is not None:
+                gate = gate * ref_valid.to(gate.dtype)[:, None]
+            return GlobalMatchingTrainable.apply(query, ref_emb, gate)
+        return global_matching_cuda(query, ref_emb, ref_onehot, ref_valid)
+
+    def _local_matching(self, query, prev, prev_onehot):
+        if self.trainable_matching:
+            return LocalMatchingTrainable.apply(query, prev, prev_onehot,
+                                                self.cfg.local_window)
+        return local_matching_cuda(query, prev, prev_onehot,
+                                   window=self.cfg.local_window)

@@ -14,6 +14,11 @@ one add per (query, key) pair and one min per tile:
 (`csrc/global_matching.cu`, which replaces the TPU kernel
 `matching_pallas.py::_matching_kernel`) for a CUDA query, and runs the
 plain version below for a CPU query. There is no fallback between them.
+
+`global_matching_prepared_argmin` does the same with the kernel's argmin
+variant (which replaces `matching_pallas.py::_matching_kernel_argmin`):
+it also returns each minimum's row in the bucketed layout, for the
+training path's argmin-routed backward (`ops/trainable.py`).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch.nn.functional as F
 
 from cvpr2020_manet_tpu_torch.kernels import build
 from cvpr2020_manet_tpu_torch.ops.matching import (
-    WRONG_LABEL_PADDING_DISTANCE, normalize_distance)
+    WRONG_LABEL_PADDING_DISTANCE, acc_dtype, normalize_distance)
 
 DEFAULT_TK = 512
 
@@ -102,7 +107,7 @@ def prepare_ref(ref: torch.Tensor, ref_onehot: torch.Tensor,
     gather = torch.clamp(src_idx, 0, nk - 1).long()
     neg2 = torch.where(filled[:, None], -2.0 * ref_pad[gather],
                        torch.zeros((), dtype=ref.dtype, device=ref.device))
-    kn_rows = ref_pad.float().square().sum(-1)
+    kn_rows = ref_pad.to(acc_dtype(ref)).square().sum(-1)
     sqnorm = torch.where(filled, kn_rows[gather],
                          torch.full_like(kn_rows[gather],
                                          WRONG_LABEL_PADDING_DISTANCE))
@@ -111,49 +116,63 @@ def prepare_ref(ref: torch.Tensor, ref_onehot: torch.Tensor,
                        block_obj=block_obj, src_idx=src_idx, num_objects=o)
 
 
-def global_matching_prepared_plain(query: torch.Tensor,
-                                   bucketed: BucketedRef) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: one matmul per reference block
-    (f32 accumulation; bf16 products are exact in f32), a running min per
-    object, then |q|^2, clamp and normalize. -> (Nq, O) f32."""
+def _plain(query: torch.Tensor, bucketed: BucketedRef, argmin: bool):
+    """Both plain versions: one matmul per reference block (f32
+    accumulation, f64 for f64 inputs; bf16 products are exact in f32), a running min (and its
+    bucketed row) per object, then |q|^2, clamp and normalize. Blocks are
+    visited in order and a block replaces the running minimum only when it
+    is smaller, and `argmin` keeps the first of equal values in a block, so
+    the lowest bucketed row wins ties, as in the kernels."""
     nq, c = query.shape
     c_pad = bucketed.neg2pixels.shape[1]
     o = bucketed.num_objects
     block_k = bucketed.sqnorm.shape[1]
-    q = F.pad(query, (0, c_pad - c)).float()
-    acc = torch.full((nq, o), WRONG_LABEL_PADDING_DISTANCE,
-                     dtype=torch.float32, device=query.device)
+    q = F.pad(query, (0, c_pad - c)).to(acc_dtype(query))
+    acc = torch.full((nq, o), WRONG_LABEL_PADDING_DISTANCE, dtype=q.dtype,
+                     device=query.device)
+    idx = torch.full((nq, o), -1, dtype=torch.int32, device=query.device)
     for j, obj in enumerate(bucketed.block_obj.tolist()):
         if obj >= o:
             continue                                     # slack block
-        k = bucketed.neg2pixels[j * block_k:(j + 1) * block_k].float()
+        k = bucketed.neg2pixels[j * block_k:(j + 1) * block_k].to(q.dtype)
         e = q @ k.T + bucketed.sqnorm[j][None, :]
-        acc[:, obj] = torch.minimum(acc[:, obj], e.amin(dim=1))
+        if argmin:
+            bmin, barg = e.min(dim=1)
+            better = bmin < acc[:, obj]
+            acc[:, obj] = torch.where(better, bmin, acc[:, obj])
+            idx[:, obj] = torch.where(better, (barg + j * block_k).int(),
+                                      idx[:, obj])
+        else:
+            acc[:, obj] = torch.minimum(acc[:, obj], e.amin(dim=1))
     qn = q.square().sum(-1, keepdim=True)
     d = torch.clamp(torch.clamp(acc + qn, min=0.0),
                     max=WRONG_LABEL_PADDING_DISTANCE)
-    return normalize_distance(d)
+    return normalize_distance(d), idx
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 \
-    + [ctypes.c_void_p]
+def global_matching_prepared_plain(query: torch.Tensor,
+                                   bucketed: BucketedRef) -> torch.Tensor:
+    """Plain PyTorch version of the kernel. -> (Nq, O) f32."""
+    return _plain(query, bucketed, argmin=False)[0]
 
 
-def global_matching_prepared(query: torch.Tensor,
-                             bucketed: BucketedRef) -> torch.Tensor:
-    """Matching of query rows (Nq, C) against a prepared reference ->
-    (Nq, O) f32. Launches the CUDA kernel for a CUDA query; runs the plain
-    version for a CPU query."""
-    if query.device.type == "cpu":
-        return global_matching_prepared_plain(query, bucketed)
+def global_matching_prepared_argmin_plain(query: torch.Tensor,
+                                          bucketed: BucketedRef):
+    """Plain PyTorch version of the argmin kernel. -> (distances (Nq, O)
+    f32, bucketed rows (Nq, O) int32, -1 for an object without rows)."""
+    return _plain(query, bucketed, argmin=True)
+
+
+def _checked_query(query: torch.Tensor, bucketed: BucketedRef) -> torch.Tensor:
+    """Check a CUDA query against the prepared reference and what the
+    kernels take; returns the query zero-padded to the reference's width."""
     if query.device.type != "cuda":
         raise ValueError(f"unsupported device {query.device}")
     neg2, sqnorm, block_obj = (bucketed.neg2pixels, bucketed.sqnorm,
                                bucketed.block_obj)
-    nq, c = query.shape
+    c = query.shape[1]
     c_pad = neg2.shape[1]
     nkb, block_k = sqnorm.shape
-    o = bucketed.num_objects
     if query.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"query dtype {query.dtype}: f32 or bf16 only")
     if neg2.dtype != query.dtype:
@@ -172,18 +191,59 @@ def global_matching_prepared(query: torch.Tensor,
     for name, t in (("query", q), ("neg2pixels", neg2)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    out = torch.empty((nq, o), dtype=torch.float32, device=query.device)
+    return q
+
+
+# query, neg2, sqnorm, block_obj, out[, idx]; nq; c, nkb, block_k, o,
+# is_bf16; stream
+_ARGTYPES = {argmin: [ctypes.c_void_p] * (6 if argmin else 5)
+             + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+             for argmin in (False, True)}
+
+
+def _launch(query: torch.Tensor, bucketed: BucketedRef, argmin: bool):
+    """Check a CUDA query and launch the kernel (or its argmin variant).
+    -> (out, idx), idx None without `argmin`."""
+    q = _checked_query(query, bucketed)
+    nq = q.shape[0]
+    nkb, block_k = bucketed.sqnorm.shape
+    o = bucketed.num_objects
+    out = torch.empty((nq, o), dtype=torch.float32, device=q.device)
+    idx = (torch.empty((nq, o), dtype=torch.int32, device=q.device)
+           if argmin else None)
     if nq == 0:
-        return out
-    fn = build.kernel_function("global_matching", "manet_global_matching",
-                               _ARGTYPES)
+        return out, idx
+    name = "global_matching_argmin" if argmin else "global_matching"
+    fn = build.kernel_function(name, f"manet_{name}", _ARGTYPES[argmin])
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), neg2.data_ptr(), sqnorm.data_ptr(),
-                 block_obj.data_ptr(), out.data_ptr(), nq, c_pad, nkb,
-                 block_k, o, int(q.dtype == torch.bfloat16),
+        err = fn(q.data_ptr(), bucketed.neg2pixels.data_ptr(),
+                 bucketed.sqnorm.data_ptr(), bucketed.block_obj.data_ptr(),
+                 out.data_ptr(), *([idx.data_ptr()] if argmin else []),
+                 nq, q.shape[1], nkb, block_k, o,
+                 int(q.dtype == torch.bfloat16),
                  torch.cuda.current_stream(q.device).cuda_stream)
-    build.check_launch("global_matching", err)
-    return out
+    build.check_launch(name, err)
+    return out, idx
+
+
+def global_matching_prepared(query: torch.Tensor,
+                             bucketed: BucketedRef) -> torch.Tensor:
+    """Matching of query rows (Nq, C) against a prepared reference ->
+    (Nq, O) f32. Launches the CUDA kernel for a CUDA query; runs the plain
+    version for a CPU query."""
+    if query.device.type == "cpu":
+        return global_matching_prepared_plain(query, bucketed)
+    return _launch(query, bucketed, argmin=False)[0]
+
+
+def global_matching_prepared_argmin(query: torch.Tensor,
+                                    bucketed: BucketedRef):
+    """Matching plus winners: -> (distances (Nq, O) f32, bucketed rows
+    (Nq, O) int32, -1 for an object without rows). Launches the argmin
+    kernel for a CUDA query; runs the plain version for a CPU query."""
+    if query.device.type == "cpu":
+        return global_matching_prepared_argmin_plain(query, bucketed)
+    return _launch(query, bucketed, argmin=True)
 
 
 def global_matching_cuda(query: torch.Tensor, ref: torch.Tensor,

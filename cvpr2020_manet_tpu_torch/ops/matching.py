@@ -27,6 +27,12 @@ import torch.nn.functional as F
 WRONG_LABEL_PADDING_DISTANCE = 1e8
 
 
+def acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The type distances are taken in: f32, or f64 for f64 inputs (the
+    plain versions' finite-difference checks)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def normalize_distance(d: torch.Tensor) -> torch.Tensor:
     """Map squared distances [0, inf) -> [0, 1); the sentinel saturates to
     exactly 1.0. Monotone, so min-fusion commutes with it."""

@@ -2,6 +2,7 @@
 JAX package, and no silent move to the CPU."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -13,9 +14,12 @@ import torch
 import cvpr2020_manet_tpu_torch
 from cvpr2020_manet_tpu_torch.config import tiny_test_config
 from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+from cvpr2020_manet_tpu_torch.engine.train_stage1 import Trainer
+from cvpr2020_manet_tpu_torch.engine.train_stage2 import Stage2Trainer
 from cvpr2020_manet_tpu_torch.models import MANet
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "pandas", "PIL", "cvpr2020_manet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "PIL",
+             "cvpr2020_manet_tpu")
 PKG_DIR = pathlib.Path(cvpr2020_manet_tpu_torch.__file__).parent
 
 
@@ -38,15 +42,23 @@ def test_port_sources_import_nothing_forbidden():
 
 def test_tiny_round_in_fresh_process_loads_no_jax():
     """tests/conftest.py imports jax into this process, so the check runs
-    in a subprocess: one tiny CPU session, then sys.modules is inspected."""
+    in a subprocess: one tiny CPU session and one tiny step of each
+    trainer, then sys.modules is inspected."""
     code = textwrap.dedent("""
         import sys
+        import numpy as np
         from cvpr2020_manet_tpu_torch.config import tiny_test_config
         from cvpr2020_manet_tpu_torch.data import SyntheticDataset
         from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+        from cvpr2020_manet_tpu_torch.engine.train_stage1 import (
+            Trainer, synthetic_batch)
+        from cvpr2020_manet_tpu_torch.engine.train_stage2 import (
+            Stage2Trainer)
         from cvpr2020_manet_tpu_torch.interactive.session import (
             InteractiveSession)
         from cvpr2020_manet_tpu_torch.models import MANet
+        import cvpr2020_manet_tpu_torch.ops.trainable
+        import cvpr2020_manet_tpu_torch.utils.checkpoint
         cfg = tiny_test_config()
         ds = SyntheticDataset(image_size=cfg.eval.image_size,
                               num_frames=cfg.eval.max_frames,
@@ -55,10 +67,17 @@ def test_tiny_round_in_fresh_process_loads_no_jax():
         ev = Evaluator(cfg, MANet(cfg.model, device="cpu"), device="cpu")
         summary = ev.run_session(InteractiveSession(ds, max_interactions=1))
         assert 0.0 <= summary["auc"] <= 1.0
+        batch = synthetic_batch(cfg, np.random.default_rng(0))
+        for trainer in (Trainer(cfg, device="cpu"),
+                        Stage2Trainer(cfg, device="cpu")):
+            assert np.isfinite(trainer.train_step(batch)["loss"])
         print(" ".join(sorted(sys.modules)))
     """)
     root = PKG_DIR.parent
+    # one intra-op thread: the shapes are tiny, and parallel test workers
+    # would oversubscribe the cores
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     loaded = out.stdout.split()
@@ -79,6 +98,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         MANet(cfg.model)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Evaluator(cfg, model, device="cuda")
+    for trainer in (Trainer, Stage2Trainer):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            trainer(cfg)
     assert Evaluator(cfg, model, device="cpu").device.type == "cpu"
 
 
