@@ -12,15 +12,29 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              and dtypes of the path that runs it (max abs error vs a stated
              tolerance, median ms over CUDA events, the plain version's ms,
              the bound, and a library call's ms where one exists): the
-             serving kernels at 480p, the argmin kernels at the training
-             shapes, with their winners and the gradients of the trainable
-             Functions; then one tiny round on the card against the same
-             round on the CPU;
+             serving kernels at 480p, the int8 kernel at the 480p round
+             and at one 1080p memory page, kernel 1's f32 variant at that
+             page (the f32 stream's shape), the argmin kernels at the
+             training shapes, with their winners and the gradients of the
+             trainable Functions; then one tiny round on the card against
+             the same round on the CPU;
 4. main    — the flagship ModelConfig() (ResNet-101, bf16, random weights
              from a seed) through `Evaluator.run_session` on a synthetic
              480p sequence of 16 frames, 2 objects, 3 rounds; the launch
              counters, reset just before, must show 1 global- and 15
              local-matching launches per round;
+   serve_int8 — the same session with `matching_backend="int8"`, fed
+             uint8 frames: 1 int8 global-matching launch and 15 local ones
+             per round, none of the other global kernels;
+   stream  — `StreamingIVOS` at 1080p, 2 objects, int8: 3 corrections (4
+             live pages), then 8 `observe` and 8 `observe_async` of uint8
+             frames and 2 of YUV 4:2:0 frames; 1 int8 global- and 1 local
+             launch per observe, none per correction; then the f32 memory
+             path (kernel 1's f32 variant) for 2 observes with 1 live page;
+   batch   — `BatchPropagator`, 4 clips x 16 frames at 480p, int8 and f32,
+             rgb and yuv420 ingest, through the batch CLI's timing loops
+             (`timed_batches`): B (T - 1) = 60 launches of the global
+             kernel and of the local one per batch;
 5. train   — the flagship model through `Trainer.train_step` (stage 1,
              TrainConfig() defaults: crop 416, batch 8) for 4 steps and
              `Stage2Trainer.train_step` (crop 416, batch 2, 3 simulated
@@ -30,8 +44,11 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              launches per stage-1 step and 2 B R F each per stage-2 step
              (the backward recomputes the checkpointed tails and rounds),
              and the serving kernels at none;
-6. result  — one JSON line of the kernels, the nvidia-smi line, and the
-             final `{"ok": true, "device": ...}` line.
+6. result  — one JSON line of the kernels (launches: kernels 1-2 over the
+             main path's 3 rounds, kernel 3 over serve_int8's 3 rounds,
+             kernels 4-5 per stage-1 step; the stream and batch phases log
+             their own), the nvidia-smi line, and the final
+             `{"ok": true, "device": ...}` line.
 """
 
 from __future__ import annotations
@@ -46,6 +63,7 @@ import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12      # dense tensor-core bf16 peak (data sheet)
+H100_INT8_OPS = 1979e12       # dense tensor-core int8 peak (data sheet)
 H100_F32_FLOPS = 67e12        # f32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12    # HBM3 (data sheet)
 
@@ -57,6 +75,18 @@ H100_BYTES_PER_S = 3.35e12    # HBM3 (data sheet)
 # distance, and the normalization's slope is at most 1/2.
 TOL_GLOBAL = 5e-4
 TOL_LOCAL = 1e-4
+# Kernel 1's f32 FMA variant (the stream's f32 memory) and its plain
+# version (TF32 off) both form f32 products and sum them in f32 in
+# another order: ~1e-6 relative of distances of ~1e1 at this embedding
+# scale, halved by the normalization's slope.
+TOL_GLOBAL_F32 = 1e-4
+# The int8 kernel and its plain version form the same integer cross terms
+# exactly and round the same f32 epilogue in the same order; only the exp
+# of the normalization differs.
+TOL_INT8 = 1e-5
+# The global kernels' library yardstick writes the whole (Nq, Nk) cross
+# term; where that exceeds this many bytes it runs over query chunks.
+LIBRARY_CHUNK_BYTES = 24 * 2**30
 # The kernel checks' queries are convex mixes of reference rows of every
 # live object (`mixed_queries`), at an embedding scale where each live
 # object's nearest distance stays off the normalization's saturation; at
@@ -184,44 +214,118 @@ def check_outputs(name: str, got: torch.Tensor, want: torch.Tensor,
     return err, share
 
 
-def kernel_global(dev, n_frames: int, hw: tuple[int, int], c_real: int,
-                  c: int, o: int):
-    """Kernel 1 at the main path's shape: all T-1 frames of queries against
-    one annotated frame, bf16, 2 live objects + background in an O=4
-    bucket (the last object has no pixels)."""
+def cross_term_ms(mm, q: torch.Tensor, kt: torch.Tensor, out_bytes: int,
+                  reps: int) -> tuple[float, int]:
+    """Median ms of the library's cross term mm(q, kt) over all queries,
+    in query chunks of at most LIBRARY_CHUNK_BYTES of output (out_bytes
+    per element). -> (ms, number of chunks)."""
+    nq = q.shape[0]
+    chunk = max(32, LIBRARY_CHUNK_BYTES // (out_bytes * kt.shape[1]))
+
+    def run():
+        for i in range(0, nq, chunk):
+            mm(q[i:i + chunk], kt)
+    return time_ms(run, reps=reps, warmup=1), -(-nq // chunk)
+
+
+def kernel_global(dev, nq: int, nk: int, c_real: int, c: int, o: int,
+                  dtype: torch.dtype, what: str):
+    """Kernel 1 at one of its paths' shapes: Nq queries against Nk
+    reference rows of `dtype` (bf16: the round, on the tensor cores; f32:
+    the stream's f32 memory, on the FMA variant), 2 live objects +
+    background in an O=4 bucket (the last object has no pixels)."""
     from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
         global_matching_prepared, global_matching_prepared_plain, prepare_ref)
+    bf16 = dtype == torch.bfloat16
+    tol = TOL_GLOBAL if bf16 else TOL_GLOBAL_F32
+    reps = 10 if bf16 else 3
     g = torch.Generator().manual_seed(1)
-    nk = hw[0] * hw[1]
-    nq = n_frames * nk
     live = o - 1
     q, k, labels = global_inputs(g, nq, nk, c_real, c, live)
-    q, k = q.to(dev, torch.bfloat16), k.to(dev, torch.bfloat16)
+    q, k = q.to(dev, dtype), k.to(dev, dtype)
     onehot = torch.nn.functional.one_hot(labels, o).float().to(dev)
     b = prepare_ref(k, onehot)
     got = global_matching_prepared(q, b)
     want = global_matching_prepared_plain(q, b)
     torch.cuda.synchronize()
-    err, share = check_outputs("global matching", got, want, live, TOL_GLOBAL)
-    ms = time_ms(lambda: global_matching_prepared(q, b))
-    plain_ms = time_ms(lambda: global_matching_prepared_plain(q, b))
-    kt = k.T.contiguous()
-    library_ms = time_ms(lambda: torch.matmul(q, kt))
+    err, share = check_outputs(f"global matching ({what})", got, want, live,
+                               tol)
+    ms = time_ms(lambda: global_matching_prepared(q, b), reps=reps)
+    plain_ms = time_ms(lambda: global_matching_prepared_plain(q, b),
+                       reps=reps)
+    library_ms, chunks = cross_term_ms(torch.matmul, q, k.T.contiguous(),
+                                       q.element_size(), reps)
     n_rows = int((b.src_idx >= 0).sum())       # labelled reference pixels
-    b_ms, b_by = bound(2.0 * nq * n_rows * c, H100_BF16_FLOPS,
+    b_ms, b_by = bound(2.0 * nq * n_rows * c,
+                       H100_BF16_FLOPS if bf16 else H100_F32_FLOPS,
                        nbytes(q, b.neg2pixels, b.sqnorm, b.block_obj, got))
-    log(f"[kernels] global_matching  Nq={nq} Nk={nk} (labelled {n_rows}) "
-        f"C={c} O={o} bf16: {share:.3f} of live-object outputs below 0.99 "
-        f"(min {MIN_UNSATURATED}), max|err|={err:.3g} (tol {TOL_GLOBAL}: f32 "
-        f"accumulation in another order, in the tensor cores); kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, cross-term GEMM only "
-        f"(torch.matmul bf16) {library_ms:.3f} ms, bound {b_ms:.3f} ms by "
+    log(f"[kernels] global_matching ({what}) Nq={nq} Nk={nk} (labelled "
+        f"{n_rows}) C={c} O={o} {str(dtype)[6:]}: {share:.3f} of "
+        f"live-object outputs below 0.99 (min {MIN_UNSATURATED}), "
+        f"max|err|={err:.3g} (tol {tol}: f32 accumulation in another order"
+        f"{', in the tensor cores' if bf16 else ''}); kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, cross-term GEMM only (torch.matmul over "
+        f"{chunks} query chunks) {library_ms:.3f} ms, bound {b_ms:.3f} ms by "
         f"{b_by}")
     return dict(name="global_matching", route="cuda",
                 source="cvpr2020_manet_tpu_torch/csrc/global_matching.cu",
                 replaces="cvpr2020_manet_tpu/ops/matching_pallas.py:274",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms)
+
+
+def kernel_global_int8(dev, nq: int, nk: int, c_real: int, c: int, o: int,
+                       what: str):
+    """Kernel 3 at one of its paths' shapes: bf16 queries (the model's
+    embeddings) against an int8 reference of Nk rows, 2 live objects +
+    background in an O=4 bucket (the last object has no pixels). Times the
+    wrapper (per-row query quantization + kernel), the kernel alone, the
+    plain version and torch._int_mm over the cross term."""
+    from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
+        _int8_query, global_matching_int8_quantized,
+        global_matching_prepared_int8, global_matching_prepared_int8_plain,
+        prepare_ref_int8)
+    g = torch.Generator().manual_seed(3)
+    live = o - 1
+    q, k, labels = global_inputs(g, nq, nk, c_real, c, live)
+    q, k = q.to(dev, torch.bfloat16), k.to(dev, torch.bfloat16)
+    onehot = torch.nn.functional.one_hot(labels, o).float().to(dev)
+    b = prepare_ref_int8(k, onehot)
+    got = global_matching_prepared_int8(q, b)
+    want = global_matching_prepared_int8_plain(q, b)
+    torch.cuda.synchronize()
+    err, share = check_outputs(f"int8 global matching ({what})", got, want,
+                               live, TOL_INT8)
+    ms = time_ms(lambda: global_matching_prepared_int8(q, b))
+    q_hat, scales = _int8_query(q, b)
+    kernel_ms = time_ms(lambda: global_matching_int8_quantized(q_hat, scales,
+                                                               b))
+    plain_ms = time_ms(lambda: global_matching_prepared_int8_plain(q, b),
+                       reps=3, warmup=1)
+    # the library's cross term on the same int8 rows (the reference rows
+    # in their source order, the same products as the kernel's)
+    n_rows = int((b.src_idx >= 0).sum())       # labelled reference pixels
+    k_hat = b.pixels[(b.src_idx >= 0).nonzero()[:, 0]][:n_rows // 8 * 8]
+    require(torch.equal(torch._int_mm(q_hat[:64], k_hat.t()).float(),
+                        q_hat[:64].float() @ k_hat.float().t()),
+            "torch._int_mm disagrees with the plain cross term")
+    library_ms, chunks = cross_term_ms(torch._int_mm, q_hat, k_hat.t(), 4,
+                                       reps=3)
+    b_ms, b_by = bound(2.0 * nq * n_rows * c, H100_INT8_OPS,
+                       nbytes(q, b.pixels, b.sqnorm, b.block_obj, got))
+    log(f"[kernels] global_matching_int8 ({what}) Nq={nq} Nk={nk} (labelled "
+        f"{n_rows}) C={c} O={o}, bf16 queries: {share:.3f} of live-object "
+        f"outputs below 0.99 (min {MIN_UNSATURATED}), max|err|={err:.3g} "
+        f"(tol {TOL_INT8}: exact integer cross terms, the same f32 "
+        f"epilogue); wrapper (query quantization + kernel) {ms:.3f} ms, "
+        f"kernel alone {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, cross "
+        f"term only (torch._int_mm over {chunks} query chunks) "
+        f"{library_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}")
+    return dict(name="global_matching_int8", route="cuda",
+                source="cvpr2020_manet_tpu_torch/csrc/global_matching.cu",
+                replaces="cvpr2020_manet_tpu/ops/matching_pallas.py:372",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, kernel_only_ms=kernel_ms)
 
 
 def kernel_local(dev, hw: tuple[int, int], c_real: int, c: int, o: int,
@@ -460,26 +564,34 @@ def tiny_round_reference():
     require(diff <= TOL_ROUND_PROBS, f"tiny round disagrees: {diff}")
 
 
-def main_path(dev, model_cfg, image_size=(480, 854), n_frames=16,
-              rounds=3):
-    """A model through the Evaluator's session loop (the flagship in
-    `main`)."""
+def synthetic_u8(**kw):
+    """A synthetic dataset that also offers raw uint8 frames, which the
+    Evaluator's session loop prefers (normalized on the device)."""
+    from cvpr2020_manet_tpu_torch.data import SyntheticDataset
+
+    class Uint8Frames(SyntheticDataset):
+        def images_uint8(self, seq):
+            return (np.clip(self.images(seq), 0, 1) * 255).astype(np.uint8)
+    return Uint8Frames(**kw)
+
+
+def main_path(dev, model, phase: str, global_kernel: str, uint8: bool,
+              image_size=(480, 854), n_frames=16, rounds=3):
+    """A model through the Evaluator's session loop; the launch counters,
+    reset just before, must show 1 `global_kernel` and n_frames - 1 local
+    launches per round and no other kernel. -> the launches."""
     from cvpr2020_manet_tpu_torch.config import Config, EvalConfig
     from cvpr2020_manet_tpu_torch.data import SyntheticDataset
     from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
     from cvpr2020_manet_tpu_torch.interactive.session import InteractiveSession
     from cvpr2020_manet_tpu_torch.kernels import build
-    from cvpr2020_manet_tpu_torch.models import MANet
 
-    cfg = Config(model=model_cfg, eval=EvalConfig(
+    cfg = Config(model=model.cfg, eval=EvalConfig(
         image_size=image_size, max_interactions=rounds))
-    t0 = time.perf_counter()
-    model = MANet(cfg.model, device=dev, seed=0)
     ev = Evaluator(cfg, model, device=dev)
-    ds = SyntheticDataset(image_size=cfg.eval.image_size, num_frames=n_frames,
-                          num_objects=2, num_sequences=1, scribble_sets=1)
-    log(f"[main] model on {dev} in {time.perf_counter() - t0:.2f} s "
-        f"({sum(p.numel() for p in model.parameters())} params)")
+    kw = dict(image_size=cfg.eval.image_size, num_frames=n_frames,
+              num_objects=2, num_sequences=1, scribble_sets=1)
+    ds = synthetic_u8(**kw) if uint8 else SyntheticDataset(**kw)
     encode_s = []
     start_sequence = ev.start_sequence
 
@@ -506,21 +618,22 @@ def main_path(dev, model_cfg, image_size=(480, 854), n_frames=16,
     n_rounds = len(ev.round_latencies)
     gt = ds.gt_masks(ds.sequences()[0])
     for r, dt in enumerate(ev.round_latencies):
-        log(f"[main] round {r}: {dt * 1e3:.1f} ms wall, "
+        log(f"[{phase}] round {r}: {dt * 1e3:.1f} ms wall, "
             f"{n_frames / dt:.1f} frames/s")
-    log(f"[main] encoder (start_sequence, {n_frames} frames): "
-        f"{encode_s[0] * 1e3:.1f} ms; session {wall:.2f} s; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+    log(f"[{phase}] matching backend {model.matching_backend!r}, "
+        f"{'uint8' if uint8 else 'float'} frames; encoder (start_sequence, "
+        f"{n_frames} frames): {encode_s[0] * 1e3:.1f} ms; session "
+        f"{wall:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"AUC {summary['auc']:.6f}, J&F@60s "
         f"{summary['metric_at_threshold']:.6f}")
-    log(f"[main] launches: {launches} over {n_rounds} rounds "
-        f"(per round: global {launches['global_matching'] / n_rounds:g}, "
+    log(f"[{phase}] launches: {launches} over {n_rounds} rounds "
+        f"(per round: {global_kernel} {launches[global_kernel] / n_rounds:g}, "
         f"local {launches['local_matching'] / n_rounds:g})")
     require(n_rounds == rounds, f"{n_rounds} rounds ran, {rounds} expected")
-    require(launches["global_matching"] == n_rounds,
-            f"global matching launches {launches}")
-    require(launches["local_matching"] == (n_frames - 1) * n_rounds,
-            f"local matching launches {launches}")
+    want = {global_kernel: n_rounds, "local_matching": (n_frames - 1) * n_rounds}
+    require(launches == {k: want.get(k, 0) for k in launches},
+            f"{phase} launches {launches}, expected {want}")
     n_obj = ds.num_objects(ds.sequences()[0])
     require(len(masks_seen) == rounds, "one mask submission per round")
     for m in masks_seen:
@@ -534,6 +647,167 @@ def main_path(dev, model_cfg, image_size=(480, 854), n_frames=16,
     require(all(0.0 <= r["jaccard"] <= 1.0 and 0.0 <= r["contour"] <= 1.0
                 for r in rows), "J and F in [0, 1]")
     return launches
+
+
+def launches_delta(fn):
+    """Run fn(); -> (its result, the kernel launches it made)."""
+    from cvpr2020_manet_tpu_torch.kernels import build
+    before = dict(build.LAUNCHES)
+    out = fn()
+    return out, {k: v - before[k] for k, v in build.LAUNCHES.items()
+                 if v != before[k]}
+
+
+def stream_phase(dev, model_i8, model_f32, image_size=(1080, 1920),
+                 corrections=3, timed=8) -> None:
+    """StreamingIVOS at 1080p with 2 objects: the int8 stream through
+    `corrections` corrections and `timed` sync and `timed` pipelined
+    observes of uint8 frames plus 2 YUV 4:2:0 frames, then the f32 memory
+    path with 1 live page."""
+    from cvpr2020_manet_tpu_torch.config import Config, EvalConfig
+    from cvpr2020_manet_tpu_torch.data import SyntheticDataset
+    from cvpr2020_manet_tpu_torch.engine.streaming import StreamingIVOS
+    from cvpr2020_manet_tpu_torch.interactive.robot import (
+        InteractiveScribblesRobot)
+    from cvpr2020_manet_tpu_torch.kernels import build
+    from cvpr2020_manet_tpu_torch.utils.ingest import rgb_to_yuv420_host
+
+    cfg = Config(model=model_i8.cfg, eval=EvalConfig(image_size=image_size))
+    n_frames = corrections + 2 * timed + 2
+    ds = SyntheticDataset(image_size=image_size, num_frames=n_frames,
+                          num_objects=2, num_sequences=1, scribble_sets=1)
+    seq = ds.sequences()[0]
+    gt = ds.gt_masks(seq)
+    u8 = (np.clip(ds.images(seq), 0, 1) * 255).astype(np.uint8)
+    yuv = [rgb_to_yuv420_host(f) for f in u8[-2:]]
+    robot = InteractiveScribblesRobot()
+    s = StreamingIVOS(cfg, model_i8, device=dev)
+    s.reset(2)
+    per_observe = {"global_matching_int8": 1, "local_matching": 1}
+
+    def observe(frame, pipelined=False):
+        out, n = launches_delta(lambda: s.observe_async(frame) if pipelined
+                                else s.observe(frame))
+        require(n == per_observe, f"stream observe launched {n}")
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    pages = []
+    for f in range(corrections):
+        pred = observe(u8[f])
+        scr = robot.scribble_frame(pred, gt[f], 2, f, n_frames, seq)
+        mask, n = launches_delta(lambda: s.correct(scr.to_json()))
+        require(n == {}, f"stream correct launched {n}")
+        require(mask.shape == gt.shape[1:] and mask.max() <= 2,
+                "correction mask")
+        pages.append(s.live_pages())
+    require(pages == [1, 2, 4], f"live pages {pages}")
+    frames = u8[corrections:corrections + 2 * timed]
+    sync_ms, masks = [], []
+    for f in frames[:timed]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks.append(observe(f))
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futures = [observe(f, pipelined=True) for f in frames[timed:]]
+    masks += [fut.result() for fut in futures]
+    pipe_ms = (time.perf_counter() - t0) * 1e3 / timed
+    yuv_ms = []
+    for y in yuv:
+        t0 = time.perf_counter()
+        masks.append(observe(y))
+        yuv_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for m in masks:
+        require(m.shape == gt.shape[1:] and m.dtype == np.int32
+                and 0 <= m.min() and m.max() <= 2, "stream mask")
+    labelled = float(np.mean([(m > 0).mean() for m in masks]))
+    n_obs = corrections + 2 * timed + len(yuv)
+    require(launches == {k: per_observe.get(k, 0) * n_obs for k in launches},
+            f"stream launches {launches}")
+    log(f"[stream] {image_size[0]}x{image_size[1]} (padded {s.hp}x{s.wp}), "
+        f"2 objects, int8, {s.live_pages()} live pages of {s.hh * s.ww} rows: "
+        f"observe p50 {statistics.median(sync_ms):.1f} ms per frame "
+        f"(all {', '.join(f'{t:.1f}' for t in sync_ms)}), pipelined "
+        f"observe_async {pipe_ms:.1f} ms per frame, YUV 4:2:0 frames "
+        f"{', '.join(f'{t:.1f}' for t in yuv_ms)} ms; non-background share "
+        f"{labelled:.3f}; peak device memory {peak:.2f} GiB; launches "
+        f"{launches} over {n_obs} observes and {corrections} corrections")
+
+    s32 = StreamingIVOS(cfg, model_f32, device=dev)
+    s32.reset(2)
+    pred = s32.observe(u8[0])
+    s32.correct(robot.scribble_frame(pred, gt[0], 2, 0, n_frames,
+                                     seq).to_json())
+    f32_ms = []
+    for f in u8[1:3]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, n = launches_delta(lambda: s32.observe(f))
+        f32_ms.append((time.perf_counter() - t0) * 1e3)
+        require(n == {"global_matching": 1, "local_matching": 1},
+                f"f32 stream observe launched {n}")
+        require(m.shape == gt.shape[1:], "f32 stream mask")
+    log(f"[stream] f32 memory (bf16 queries matched in f32: kernel 1's f32 "
+        f"variant), 1 live page: observe {', '.join(f'{t:.1f}' for t in f32_ms)}"
+        f" ms per frame")
+
+
+def batch_phase(dev, model, ingest: str, batch=4, n_frames=16,
+                image_size=(480, 864), batches=3) -> None:
+    """BatchPropagator on `batches` synthetic batches of `batch` clips: one
+    warm-up batch, then the CLI's timing loops (`timed_batches`: serial
+    and pipelined frames/s, planar YUV made before the clock) over the
+    others; the launch counters must show B (T - 1) launches of the global
+    and of the local kernel per batch."""
+    from cvpr2020_manet_tpu_torch.data import SyntheticDataset
+    from cvpr2020_manet_tpu_torch.engine.propagate_batch import (
+        BatchPropagator, timed_batches)
+    from cvpr2020_manet_tpu_torch.config import Config, EvalConfig
+
+    cfg = Config(model=model.cfg, eval=EvalConfig(image_size=image_size))
+    prop = BatchPropagator(cfg, model, ingest=ingest, device=dev)
+    ds = SyntheticDataset(image_size=image_size, num_frames=n_frames,
+                          num_objects=2, num_sequences=batch * batches,
+                          scribble_sets=1)
+    names = ds.sequences()
+    data = []
+    for i in range(0, len(names), batch):
+        seqs = names[i:i + batch]
+        frames = np.stack([(np.clip(ds.images(q), 0, 1) * 255).astype(np.uint8)
+                           for q in seqs])
+        first = np.stack([ds.gt_masks(q)[0, ::4, ::4] for q in seqs])
+        data.append((frames, first.astype(np.int32), np.full(batch, 2)))
+    gkernel = ("global_matching_int8" if model.matching_backend == "int8"
+               else "global_matching")
+    per_batch = {gkernel: batch * (n_frames - 1),
+                 "local_matching": batch * (n_frames - 1)}
+    prop.propagate(*data[0])                       # warm-up
+    timed = data[1:]
+    (serial_s, pipe_s, labels), n = launches_delta(
+        lambda: timed_batches(prop, timed))
+    runs = 2 * len(timed)                          # serial and pipelined
+    require(n == {k: v * runs for k, v in per_batch.items()},
+            f"{runs} batches launched {n}, expected {per_batch} each")
+    for (frames, first, _), lab in zip(timed, labels):
+        require(lab.shape == frames.shape[:4] and lab.max() <= 2,
+                "batch labels")
+        seed_up = np.repeat(np.repeat(first, 4, axis=1), 4, axis=2)
+        require(float((lab[:, 0] == seed_up).mean()) > 0.95,
+                "frame 0 reproduces the first mask")
+    fps = batch * n_frames / statistics.median(serial_s)
+    log(f"[batch] {model.matching_backend!r} matching, {ingest} ingest, "
+        f"{batch} x {n_frames} frames at {image_size[0]}x{image_size[1]}: "
+        f"serial {fps:.1f} frames/s (batches "
+        f"{', '.join(f'{t * 1e3:.0f}' for t in serial_s)} ms), pipelined "
+        f"{batch * n_frames / pipe_s:.1f} frames/s; launches {n} over "
+        f"{len(timed)} serial and {len(timed)} pipelined batches")
 
 
 def run_trainer(name: str, trainer, cfg, steps: int,
@@ -632,15 +906,56 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     # [3] kernels at their paths' shapes, and a tiny round vs the CPU
-    kernels = [kernel_global(dev, 15, (120, 216), 100, 128, 4),
+    round_480p = "480p round: 15 frames against one"
+    page_1080p = "one 1080p frame against one memory page"
+    kernels = [kernel_global(dev, 15 * 120 * 216, 120 * 216, 100, 128, 4,
+                             torch.bfloat16, round_480p),
                kernel_local(dev, (60, 108), 100, 128, 4, 15),
+               kernel_global_int8(dev, 15 * 120 * 216, 120 * 216, 100, 128, 4,
+                                  round_480p),
                kernel_global_argmin(dev, (104, 104), 100, 128, 9),
                kernel_local_argmin(dev, (52, 52), 100, 128, 9, 15)]
+    # the stream's two global-matching shapes: int8 memory, and f32 memory
+    # on kernel 1's f32 FMA variant
+    pages = {"global_matching_int8": kernel_global_int8(
+                 dev, 272 * 480, 272 * 480, 100, 128, 4, page_1080p),
+             "global_matching (f32)": kernel_global(
+                 dev, 272 * 480, 272 * 480, 100, 128, 4, torch.float32,
+                 page_1080p)}
+    for name, page in pages.items():
+        log(f"[kernels] {name} at one 1080p page: " + json.dumps(
+            {k: page[k] for k in ("max_abs_err", "ms", "kernel_only_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms") if k in page}))
     tiny_round_reference()
+    torch.cuda.empty_cache()
 
-    # [4] main path: the flagship model at 480p; launches over its 3 rounds
+    # [4] the serving paths, each with the counters reset just before it:
+    # the flagship model at 480p (3 rounds), the same in the int8 mode on
+    # uint8 frames, the 1080p stream, and the batch propagator
     from cvpr2020_manet_tpu_torch.config import ModelConfig
-    launches = main_path(dev, ModelConfig())
+    from cvpr2020_manet_tpu_torch.models import MANet
+    t0 = time.perf_counter()
+    model = MANet(ModelConfig(), device=dev, seed=0)
+    model_i8 = MANet(ModelConfig(), device=dev, seed=0,
+                     matching_backend="int8")
+    log(f"[main] two flagship models (default and int8 matching, the same "
+        f"seeded weights) on {dev} in {time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in model.parameters())} params each)")
+    launches = main_path(dev, model, "main", "global_matching", uint8=False)
+    # kernel 3's launches in the kernels line: serve_int8's 3 rounds, as
+    # kernels 1-2 count the main path's; the stream and the batches log
+    # their own
+    launches["global_matching_int8"] = main_path(
+        dev, model_i8, "serve_int8", "global_matching_int8",
+        uint8=True)["global_matching_int8"]
+    stream_phase(dev, model_i8, model)
+    torch.cuda.empty_cache()
+    for m in (model_i8, model):
+        for ingest in ("rgb", "yuv420"):
+            batch_phase(dev, m, ingest)
+    del model, model_i8
+    torch.cuda.empty_cache()
 
     # [5] training: the flagship model; launches per stage-1 step
     launches.update(train_phase(dev))

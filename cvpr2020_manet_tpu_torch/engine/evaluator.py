@@ -6,8 +6,10 @@ round of the JAX package):
 
 1. the interaction head and the MA memory gate run on the annotated frame
    (`_interaction`);
-2. the annotated frame's pixels are bucketed by object (`prepare_ref`) and
-   ONE global-matching launch covers all T-1 other frames;
+2. the annotated frame's pixels are bucketed by object
+   (`MANet.prepare_ref`, quantized to int8 for a model with
+   `matching_backend="int8"`) and ONE global-matching launch
+   (`MANet.match_prepared`) covers all T-1 other frames;
 3. a (T-1)-step sweep visits frames annot+1 .. T-1, then annot-1 .. 0,
    resetting its carry to the interaction output where the backward sweep
    starts; each step runs local matching, min-fusion, the decomposed
@@ -15,14 +17,22 @@ round of the JAX package):
 4. probabilities are upsampled, argmaxed and bit-packed (`_masks_impl`);
    `collect_round` downloads and unpacks them.
 
+Frames come as host-normalized floats or as raw uint8 RGB, which is
+padded with the ImageNet mean byte and normalized on the device.
+
 Everything runs under `torch.inference_mode()` on the evaluator's device
 (`cuda` unless the caller passes another). Not ported yet: segmented
 rounds, `stacked` matching memory, `gmap_refresh`, `ablate_memory`,
-context-parallel matching, int8 matching, uint8 frame ingest.
+context-parallel matching.
+
+The helpers the serving engines share with the evaluator live here too:
+the mask bit-packing, the object, mask-bit and live-page buckets, and the
+download pool.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import time
 from typing import Any, Dict
@@ -32,13 +42,23 @@ import torch
 import torch.nn.functional as F
 
 from cvpr2020_manet_tpu_torch.config import Config
+from cvpr2020_manet_tpu_torch.data.davis import IMAGENET_MEAN
 from cvpr2020_manet_tpu_torch.device import resolve_device
 from cvpr2020_manet_tpu_torch.interactive.scribbles import (
     annotated_frames, scribbles2mask)
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 from cvpr2020_manet_tpu_torch.models.manet import NEG_INF, MANet
-from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
-    global_matching_prepared, prepare_ref)
+from cvpr2020_manet_tpu_torch.utils.ingest import preprocess_frames
+
+# One process-wide pool for mask downloads (threads start on first use):
+# the serving engines hand each packed mask's device-to-host copy to it,
+# so that the copy overlaps the next frames' device work.
+_FETCH_POOL = concurrent.futures.ThreadPoolExecutor(
+    max_workers=4, thread_name_prefix="mask-fetch")
+
+# The ImageNet mean as bytes: uint8 frames are padded with it, so that the
+# padding normalizes to about 0.0, as the float path's zero padding does.
+_MEAN_U8 = np.round(IMAGENET_MEAN * 255).astype(np.uint8)
 
 
 def pad_image_to(x: np.ndarray, multiple: int) -> np.ndarray:
@@ -95,6 +115,33 @@ def object_bucket_for(num_objects: int | None, o_max: int) -> int:
         if num_objects + 1 <= b:
             return b
     return o_max
+
+
+def bucket_mask_bits(o_bucket: int) -> int:
+    """Bits per pixel of the packed masks of an object bucket (the batch
+    engine packs at the bucket, not at the live label count)."""
+    if o_bucket <= 4:
+        return 2
+    if o_bucket <= 16:
+        return 4
+    return 8
+
+
+def live_page_bucket(rounds: int, capacity: int) -> int:
+    """Memory pages to match: the filled count rounded up to a power of 2,
+    capped at `capacity` (at least 1)."""
+    r = max(1, min(rounds, capacity))
+    p = 1
+    while p < r:
+        p *= 2
+    return min(p, capacity)
+
+
+def downsample_mask_max(m: np.ndarray, stride: int) -> np.ndarray:
+    """(H, W, O) -> (H/s, W/s, O) presence max-pool, so that thin scribble
+    lines survive the step down to feature resolution."""
+    h, w, o = m.shape
+    return m.reshape(h // stride, stride, w // stride, stride, o).max((1, 3))
 
 
 def unpack_labels(packed: np.ndarray, bits: int) -> np.ndarray:
@@ -216,9 +263,10 @@ class Evaluator:
         frame_t = torch.as_tensor(frame, device=emb.device)
 
         # global matching does not depend on the carry: all T-1 frames go
-        # through ONE kernel launch against the bucketed reference
-        bucketed = prepare_ref(ref_emb, ref_onehot)
-        gm_pre = global_matching_prepared(
+        # through ONE kernel launch against the bucketed reference, in the
+        # model's matching backend
+        bucketed = model.prepare_ref(ref_emb, ref_onehot)
+        gm_pre = model.match_prepared(
             emb[frame_t].reshape(-1, ce), bucketed).reshape(t - 1, h, w, o)
 
         # decomposed head stage 1: round-constant conv0 contributions
@@ -277,19 +325,26 @@ class Evaluator:
     def start_sequence(self, images: np.ndarray,
                        num_objects: int | None = None) -> SequenceState:
         """Extract features of all frames (the once-per-video cost) in
-        8-frame chunks over the padded frame bucket; init memories."""
-        if images.dtype == np.uint8:
-            raise NotImplementedError(
-                "uint8 frame ingest is not ported; pass host-normalized "
-                "float frames")
+        8-frame chunks over the padded frame bucket; init memories.
+
+        `images` (T, H, W, 3): host-normalized floats, or raw uint8 RGB
+        that is normalized on the device. Padding is the mean pixel either
+        way: 0.0 for floats, the mean byte for uint8 (a zero byte would be
+        black, about -2 sigma, and bleed into the edge features)."""
         t_actual = images.shape[0]
         t_pad = self.frame_bucket(t_actual)
-        images = pad_image_to(images.astype(np.float32, copy=False),
+        dt = np.uint8 if images.dtype == np.uint8 else np.float32
+        h0, w0 = images.shape[1:3]
+        images = pad_image_to(images.astype(dt, copy=False),
                               self.cfg.eval.pad_to)
+        if dt == np.uint8 and images.shape[1:3] != (h0, w0):
+            images[:, h0:] = _MEAN_U8          # a padded copy: safe to write
+            images[:, :, w0:] = _MEAN_U8
         if t_actual < t_pad:
+            fill = _MEAN_U8 if dt == np.uint8 else 0
             images = np.concatenate(
-                [images, np.zeros((t_pad - t_actual, *images.shape[1:]),
-                                  np.float32)])
+                [images, np.full((t_pad - t_actual, *images.shape[1:]), fill,
+                                 dt)])
         chunk = min(8, t_pad)
         if t_pad % chunk:
             raise ValueError(f"frame bucket {t_pad} is not a multiple of the "
@@ -297,7 +352,10 @@ class Evaluator:
         feats, embs = [], []
         for i in range(0, t_pad, chunk):
             x = torch.from_numpy(np.ascontiguousarray(images[i:i + chunk]))
-            f, e = self.model.extract_features(x.to(self.device))
+            x = x.to(self.device)
+            if dt == np.uint8:
+                x = preprocess_frames(x)
+            f, e = self.model.extract_features(x)
             feats.append(f)
             embs.append(e)
         feat = torch.cat(feats).contiguous()
@@ -407,7 +465,11 @@ class Evaluator:
                     else:
                         if st is not None:
                             release_state(st)
-                        images = sess.dataset.images(seq)
+                        # raw uint8 frames when the dataset has them: a
+                        # quarter of the bytes, normalized on the device
+                        images_fn = getattr(sess.dataset, "images_uint8",
+                                            sess.dataset.images)
+                        images = images_fn(seq)
                         hw = images.shape[1:3]
                         st = self.start_sequence(
                             images, sess.dataset.num_objects(seq))

@@ -35,6 +35,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 # kernel (launch counter) -> the source stem under csrc/ that holds it
 KERNELS = {"global_matching": "global_matching",
            "global_matching_argmin": "global_matching",
+           "global_matching_int8": "global_matching",
            "local_matching": "local_matching",
            "local_matching_argmin": "local_matching"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))

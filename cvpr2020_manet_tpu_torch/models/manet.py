@@ -18,6 +18,12 @@ versions for CPU tensors. With `trainable_matching=True` (the trainers) it
 goes through the argmin-routed `torch.autograd.Function`s of
 `ops/trainable.py` instead, whose forwards are the kernels' argmin
 variants; inference keeps the leaner kernels.
+
+`matching_backend="int8"` is the opt-in int8 serving mode (the JAX
+model's `pallas_int8`): global matching quantizes the memory and the
+queries to int8 and runs the int8 tensor-core kernel. Training
+(`trainable_matching`) stays full precision, and local matching stays
+full precision in both modes, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -34,13 +40,15 @@ from cvpr2020_manet_tpu_torch.models.heads import (
 from cvpr2020_manet_tpu_torch.models.layers import (
     init_weights, resize_bilinear, resize_nearest)
 from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
-    global_matching_cuda)
+    global_matching_prepared, global_matching_prepared_int8, prepare_ref,
+    prepare_ref_int8)
 from cvpr2020_manet_tpu_torch.ops.local_matching_cuda import (
     local_matching_cuda)
 from cvpr2020_manet_tpu_torch.ops.trainable import (
     GlobalMatchingTrainable, LocalMatchingTrainable)
 
 NEG_INF = -1e9   # logit of an invalid (padding) object
+MATCHING_BACKENDS = ("auto", "int8")
 
 
 def _fold_maps(maps: torch.Tensor) -> torch.Tensor:
@@ -58,14 +66,20 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class MANet(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
-                 trainable_matching: bool = False):
+                 trainable_matching: bool = False,
+                 matching_backend: str = "auto"):
         """Weights are drawn on the CPU from `torch.Generator` seeded with
         `seed` (the same weights on every device), then moved to `device`
         (`cuda` unless given). `trainable_matching`: match through the
         argmin-routed Functions (training), as the JAX model's flag of the
-        same name does."""
+        same name does. `matching_backend`: "auto" (the full-precision
+        kernels) or "int8" (int8 global matching for serving)."""
         super().__init__()
+        if matching_backend not in MATCHING_BACKENDS:
+            raise ValueError(f"matching_backend={matching_backend!r}: one of "
+                             f"{MATCHING_BACKENDS}")
         self.trainable_matching = trainable_matching
+        self.matching_backend = matching_backend
         if cfg.norm != "gn" or cfg.head_norm != "gn":
             raise NotImplementedError(
                 f"norm={cfg.norm!r}, head_norm={cfg.head_norm!r}: only 'gn' "
@@ -190,13 +204,35 @@ class MANet(nn.Module):
         logits = logits + (1.0 - obj_valid) * NEG_INF
         return logits, gm
 
+    def prepare_ref(self, ref_emb, ref_onehot, ref_valid=None):
+        """The matching reference (Nk, Ce) bucketed by object for
+        `match_prepared`, in the model's matching backend (int8: quantized
+        once here). A caller that matches many queries against one
+        reference prepares it once."""
+        if self.matching_backend == "int8":
+            return prepare_ref_int8(ref_emb, ref_onehot, ref_valid)
+        return prepare_ref(ref_emb, ref_onehot, ref_valid)
+
+    def match_prepared(self, query, bucketed):
+        """Query rows (Nq, Ce) against a `prepare_ref` reference -> (Nq, O)
+        f32: one global-matching launch (int8: kernel 3, else kernel 1)."""
+        if self.matching_backend == "int8":
+            return global_matching_prepared_int8(query, bucketed)
+        return global_matching_prepared(query, bucketed)
+
     def _global_matching(self, query, ref_emb, ref_onehot, ref_valid):
         if self.trainable_matching:
             gate = ref_onehot
             if ref_valid is not None:
                 gate = gate * ref_valid.to(gate.dtype)[:, None]
             return GlobalMatchingTrainable.apply(query, ref_emb, gate)
-        return global_matching_cuda(query, ref_emb, ref_onehot, ref_valid)
+        if self.matching_backend != "int8":
+            # query and reference meet in their promoted type, as in JAX: a
+            # bf16 query against the streaming engine's f32 memory is f32
+            dt = torch.promote_types(query.dtype, ref_emb.dtype)
+            query, ref_emb = query.to(dt), ref_emb.to(dt)
+        return self.match_prepared(
+            query, self.prepare_ref(ref_emb, ref_onehot, ref_valid))
 
     def _local_matching(self, query, prev, prev_onehot):
         if self.trainable_matching:

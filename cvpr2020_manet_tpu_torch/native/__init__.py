@@ -47,11 +47,16 @@ _tried = False
 
 
 def _build() -> bool:
+    # each process builds into its own temporary file: processes that
+    # build at the same time (parallel test workers) must not rename one
+    # another's output away, which would leave one of them without the
+    # library for its whole life
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-           *_SOURCES, "-o", _SO + ".tmp"]
+           *_SOURCES, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(_SO + ".tmp", _SO)
+        os.replace(tmp, _SO)
         return True
     except (OSError, subprocess.SubprocessError):
         return False

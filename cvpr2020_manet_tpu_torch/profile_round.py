@@ -1,15 +1,25 @@
-"""Where a round's time goes on the GPU: a torch.profiler trace of one
-interactive round of the flagship model. It is the source of the
-per-layer breakdown in PERF.md ("Where the time goes").
+"""Where the serving paths' time goes on the GPU: a torch.profiler trace of
+one step of the flagship model. It is the source of the per-layer
+breakdowns in PERF.md ("Where the time goes").
 
-    python -m cvpr2020_manet_tpu_torch.profile_round [--frames 16] [--out PATH]
+    python -m cvpr2020_manet_tpu_torch.profile_round [--path round] \
+        [--frames 16] [--out PATH]
 
-Builds the flagship `ModelConfig()` with seeded random weights, encodes a
-synthetic 480p sequence, runs `WARM_ROUNDS` untraced rounds, then traces
-one round (CPU + CUDA activities). Prints the round's wall time, the
-device-busy time (the sum of kernel durations on the one stream) and idle
-share, the device time by layer (kernel-name rules below) and the top
-kernels; with `--out`, writes the same as JSON. Needs a CUDA device.
+Builds the flagship `ModelConfig()` with seeded random weights and traces
+one step of a path (CPU + CUDA activities) after `WARM_STEPS` untraced
+ones:
+
+- `round`: one interactive round of a synthetic 480p sequence of
+  `--frames` frames (`Evaluator.run_round`);
+- `stream`: one 1080p `StreamingIVOS.observe` of a uint8 frame with the
+  int8 matching backend, after 3 corrections (4 live memory pages);
+- `batch`: one `BatchPropagator.propagate` of 4 clips x `--frames` frames
+  at 480p, uint8 RGB, int8 matching.
+
+Prints the step's wall time, the device-busy time (the sum of kernel
+durations on the one stream) and idle share, the device time by layer
+(kernel-name rules below) and the top kernels; with `--out`, writes the
+same as JSON. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ LAYERS = (
     ("softmax", "softmax"),
     ("reduce", "reductions (argmax, min, sum)"),
     ("sort", "sort / bucketing"),
+    ("Sort", "sort / bucketing"),
     ("scan", "sort / bucketing"),
     ("cat", "copies / cat / index"),
     ("index", "copies / cat / index"),
@@ -43,7 +54,7 @@ LAYERS = (
     ("Memcpy", "copies / cat / index"),
     ("elementwise", "elementwise"),
 )
-WARM_ROUNDS = 2     # round 0 pays first-call costs; round 1 is steady state
+WARM_STEPS = 2      # step 0 pays first-call costs; step 1 is steady state
 
 
 def layer_of(name: str) -> str:
@@ -53,8 +64,83 @@ def layer_of(name: str) -> str:
     return "other"
 
 
+def round_step(cfg, frames: int):
+    """-> (prepare, run): the robot's scribbles, then one interactive
+    round at 480p on them."""
+    from cvpr2020_manet_tpu_torch.data import SyntheticDataset
+    from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+    from cvpr2020_manet_tpu_torch.interactive.robot import (
+        InteractiveScribblesRobot)
+    from cvpr2020_manet_tpu_torch.models import MANet
+    ev = Evaluator(cfg, MANet(cfg.model, device="cuda", seed=0))
+    ds = SyntheticDataset(image_size=cfg.eval.image_size, num_frames=frames,
+                          num_objects=2, num_sequences=1, scribble_sets=1)
+    seq = ds.sequences()[0]
+    gt = ds.gt_masks(seq)
+    n_obj = ds.num_objects(seq)
+    st = ev.start_sequence(ds.images(seq), n_obj)
+    robot = InteractiveScribblesRobot()
+    masks = np.zeros_like(gt)
+    scr = None
+
+    def prepare():
+        nonlocal scr
+        scr = robot.interact(seq, masks, gt, n_obj).to_json()
+
+    def run():
+        nonlocal masks
+        masks = ev.run_round(st, scr, gt.shape[1:], n_obj)
+    return prepare, run
+
+
+def stream_step(cfg):
+    """-> (prepare, run): one 1080p int8 observe with 4 live pages."""
+    import dataclasses
+    from cvpr2020_manet_tpu_torch.data import SyntheticDataset
+    from cvpr2020_manet_tpu_torch.engine.streaming import StreamingIVOS
+    from cvpr2020_manet_tpu_torch.interactive.robot import (
+        InteractiveScribblesRobot)
+    from cvpr2020_manet_tpu_torch.models import MANet
+    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, image_size=(1080, 1920)))
+    s = StreamingIVOS(cfg, MANet(cfg.model, device="cuda", seed=0,
+                                 matching_backend="int8"))
+    ds = SyntheticDataset(image_size=cfg.eval.image_size, num_frames=4,
+                          num_objects=2, num_sequences=1, scribble_sets=1)
+    seq = ds.sequences()[0]
+    gt = ds.gt_masks(seq)
+    u8 = (np.clip(ds.images(seq), 0, 1) * 255).astype(np.uint8)
+    robot = InteractiveScribblesRobot()
+    s.reset(2)
+    for f in range(3):
+        pred = s.observe(u8[f])
+        s.correct(robot.scribble_frame(pred, gt[f], 2, f, 4, seq).to_json())
+    return (lambda: None), (lambda: s.observe(u8[3]))
+
+
+def batch_step(cfg, frames: int, batch: int = 4):
+    """-> (prepare, run): one batch of clips propagated at 480p."""
+    from cvpr2020_manet_tpu_torch.data import SyntheticDataset
+    from cvpr2020_manet_tpu_torch.engine.propagate_batch import (
+        BatchPropagator)
+    from cvpr2020_manet_tpu_torch.models import MANet
+    prop = BatchPropagator(cfg, MANet(cfg.model, device="cuda", seed=0,
+                                      matching_backend="int8"))
+    h, w = (n + (-n) % cfg.eval.pad_to for n in cfg.eval.image_size)
+    ds = SyntheticDataset(image_size=(h, w), num_frames=frames, num_objects=2,
+                          num_sequences=batch, scribble_sets=1)
+    seqs = ds.sequences()
+    clips = np.stack([(np.clip(ds.images(q), 0, 1) * 255).astype(np.uint8)
+                      for q in seqs])
+    first = np.stack([ds.gt_masks(q)[0, ::4, ::4] for q in seqs])
+    return (lambda: None), (lambda: prop.propagate(
+        clips, first.astype(np.int32), np.full(batch, 2)))
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=["round", "stream", "batch"],
+                    default="round")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -62,38 +148,24 @@ def main(argv=None) -> dict:
         raise SystemExit("profile_round: needs a CUDA device")
 
     from cvpr2020_manet_tpu_torch.config import Config, EvalConfig, ModelConfig
-    from cvpr2020_manet_tpu_torch.data import SyntheticDataset
-    from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
-    from cvpr2020_manet_tpu_torch.interactive.robot import (
-        InteractiveScribblesRobot)
-    from cvpr2020_manet_tpu_torch.models import MANet
-
     cfg = Config(model=ModelConfig(), eval=EvalConfig())
-    ev = Evaluator(cfg, MANet(cfg.model, device="cuda", seed=0))
-    ds = SyntheticDataset(image_size=cfg.eval.image_size,
-                          num_frames=args.frames, num_objects=2,
-                          num_sequences=1, scribble_sets=1)
-    seq = ds.sequences()[0]
-    gt = ds.gt_masks(seq)
-    n_obj = ds.num_objects(seq)
-    st = ev.start_sequence(ds.images(seq), n_obj)
-    robot = InteractiveScribblesRobot()
-    masks = np.zeros_like(gt)
+    prepare, run = {"round": lambda: round_step(cfg, args.frames),
+                    "stream": lambda: stream_step(cfg),
+                    "batch": lambda: batch_step(cfg, args.frames)}[args.path]()
 
-    def one_round():
-        nonlocal masks
-        scr = robot.interact(seq, masks, gt, n_obj)
+    def timed():
+        prepare()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        masks = ev.run_round(st, scr.to_json(), gt.shape[1:], n_obj)
+        run()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    warm = [one_round() for _ in range(WARM_ROUNDS)]
+    warm = [timed() for _ in range(WARM_STEPS)]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        wall = one_round()
+        wall = timed()
 
     per_kernel = defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
@@ -108,9 +180,10 @@ def main(argv=None) -> dict:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     result = {
         "device": torch.cuda.get_device_name(0),
+        "path": args.path,
         "frames": args.frames,
-        "warm_round_ms": [w * 1e3 for w in warm],
-        "round_ms": wall * 1e3,
+        "warm_step_ms": [w * 1e3 for w in warm],
+        "step_ms": wall * 1e3,
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / (wall * 1e3),
         "kernel_launches": sum(v[1] for v in per_kernel.values()),
@@ -118,7 +191,8 @@ def main(argv=None) -> dict:
         "top_kernels": [{"name": n[:120], "ms": us / 1e3, "count": c}
                         for n, (us, c) in top],
     }
-    print(f"[profile] {result['device']}: round {result['round_ms']:.2f} ms "
+    print(f"[profile] {result['device']}: {args.path} step "
+          f"{result['step_ms']:.2f} ms "
           f"wall, device busy {busy_ms:.2f} ms (idle share "
           f"{result['idle_share']:.3f}), {result['kernel_launches']} kernels")
     for layer, ms in result["by_layer_ms"].items():

@@ -14,6 +14,8 @@ import torch
 import cvpr2020_manet_tpu_torch
 from cvpr2020_manet_tpu_torch.config import tiny_test_config
 from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+from cvpr2020_manet_tpu_torch.engine.propagate_batch import BatchPropagator
+from cvpr2020_manet_tpu_torch.engine.streaming import StreamingIVOS
 from cvpr2020_manet_tpu_torch.engine.train_stage1 import Trainer
 from cvpr2020_manet_tpu_torch.engine.train_stage2 import Stage2Trainer
 from cvpr2020_manet_tpu_torch.models import MANet
@@ -42,8 +44,9 @@ def test_port_sources_import_nothing_forbidden():
 
 def test_tiny_round_in_fresh_process_loads_no_jax():
     """tests/conftest.py imports jax into this process, so the check runs
-    in a subprocess: one tiny CPU session and one tiny step of each
-    trainer, then sys.modules is inspected."""
+    in a subprocess: one tiny CPU session (int8 matching, uint8 frames),
+    one tiny step of each trainer, a few streamed frames and one batch of
+    propagation, then sys.modules is inspected."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -64,9 +67,26 @@ def test_tiny_round_in_fresh_process_loads_no_jax():
                               num_frames=cfg.eval.max_frames,
                               num_sequences=1, num_objects=2,
                               scribble_sets=1)
-        ev = Evaluator(cfg, MANet(cfg.model, device="cpu"), device="cpu")
+        model = MANet(cfg.model, device="cpu", matching_backend="int8")
+        ev = Evaluator(cfg, model, device="cpu")
+        ds.images_uint8 = lambda seq: (ds.images(seq) * 255).astype(
+            np.uint8)
         summary = ev.run_session(InteractiveSession(ds, max_interactions=1))
         assert 0.0 <= summary["auc"] <= 1.0
+        from cvpr2020_manet_tpu_torch.engine.propagate_batch import (
+            BatchPropagator)
+        from cvpr2020_manet_tpu_torch.engine.streaming import StreamingIVOS
+        seq = ds.sequences()[0]
+        u8 = ds.images_uint8(seq)
+        s = StreamingIVOS(cfg, model, device="cpu")
+        s.reset(2)
+        s.observe(u8[0])
+        s.correct(ds.initial_scribbles(seq, 0).to_json())
+        assert s.observe_async(u8[1]).result().shape == u8.shape[1:3]
+        labels = BatchPropagator(cfg, model, ingest="yuv420",
+                                 device="cpu").propagate(
+            u8[None], ds.gt_masks(seq)[None, 0, ::4, ::4], np.array([2]))
+        assert labels.shape == (1, *u8.shape[:3])
         batch = synthetic_batch(cfg, np.random.default_rng(0))
         for trainer in (Trainer(cfg, device="cpu"),
                         Stage2Trainer(cfg, device="cpu")):
@@ -101,6 +121,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for trainer in (Trainer, Stage2Trainer):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             trainer(cfg)
+    for engine in (StreamingIVOS, BatchPropagator):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine(cfg, model)
+        assert engine(cfg, model, device="cpu").device.type == "cpu"
     assert Evaluator(cfg, model, device="cpu").device.type == "cpu"
 
 

@@ -10,6 +10,11 @@ widened) and accumulate in f32 in another order, so they agree to 1e-5 on
 the normalized distances at these input scales. TF32 is off for the plain
 matmuls.
 
+The int8 kernel (kernel 3) and its plain version form the same integer
+cross terms exactly (in int32, and in f32 below 2^24) and round the same
+f32 epilogue in the same order, so they differ only in the exp of the
+normalization: 1e-5.
+
 The argmin kernels' winners must equal the plain versions' wherever the
 best candidate beats the second best by more than the distance tolerance
 (closer pairs may swap under another summation order). The trainable
@@ -25,9 +30,10 @@ import torch
 
 from cvpr2020_manet_tpu_torch.kernels import build
 from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
-    global_matching_prepared, global_matching_prepared_argmin,
-    global_matching_prepared_argmin_plain, global_matching_prepared_plain,
-    prepare_ref)
+    global_matching_int8_quantized, global_matching_prepared,
+    global_matching_prepared_argmin, global_matching_prepared_argmin_plain,
+    global_matching_prepared_int8, global_matching_prepared_int8_plain,
+    global_matching_prepared_plain, prepare_ref, prepare_ref_int8)
 from cvpr2020_manet_tpu_torch.ops.local_matching_cuda import (
     local_matching_prepared, local_matching_prepared_argmin,
     local_matching_prepared_argmin_plain, local_matching_prepared_plain,
@@ -319,3 +325,56 @@ def test_argmin_wrappers_reject_bad_inputs(cuda):
     shifted.copy_(b.neg2pixels)
     with pytest.raises(ValueError, match="aligned"):
         global_matching_prepared_argmin(kb, b._replace(neg2pixels=shifted))
+
+
+@pytest.mark.parametrize("nq,nk,c,o,empty", [
+    (300, 700, 20, 3, False),         # ragged everything
+    (257, 1025, 128, 9, False),       # past block boundaries
+    (50, 200, 16, 2, False),          # fewer queries than a block
+    (64, 600, 128, 4, True),          # an object with no pixels
+    (25920, 25920, 100, 4, True),     # a 480p frame step (batch engine)
+    (130560, 130560, 100, 4, True),   # one 1080p memory page (stream)
+])
+def test_int8_kernel_matches_plain(cuda, nq, nk, c, o, empty):
+    rng = np.random.default_rng(7)
+    q, k = _noisy_copies(rng, nk, nq, c, cuda, torch.bfloat16)
+    labels = rng.integers(0, o - 1 if empty else o, size=nk)
+    onehot = torch.tensor(np.eye(o)[labels], dtype=torch.float32, device=cuda)
+    valid = torch.tensor(rng.random(nk) > 0.2, device=cuda)
+    b = prepare_ref_int8(k, onehot, valid)
+    assert (b.block_obj >= o).any()               # slack blocks are skipped
+    before = dict(build.LAUNCHES)
+    got = global_matching_prepared_int8(q, b)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["global_matching_int8"] == \
+        before["global_matching_int8"] + 1
+    assert build.LAUNCHES["global_matching"] == before["global_matching"]
+    want = global_matching_prepared_int8_plain(q, b)
+    assert got.shape == (nq, o) and got.dtype == torch.float32
+    assert (want < 0.9).float().mean() > 0.05     # the check is not vacuous
+    torch.testing.assert_close(got, want, **TOL)
+    if empty:
+        assert (got[:, o - 1] == 1.0).all()
+
+
+def test_int8_wrapper_rejects_bad_inputs(cuda):
+    k = torch.randn(640, 128, device=cuda)
+    b = prepare_ref_int8(k, torch.ones(640, 2, device=cuda))
+    q = torch.randn(64, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):            # wider than the reference
+        global_matching_prepared_int8(torch.zeros(64, 256, device=cuda), b)
+    with pytest.raises(TypeError):             # not an int8 reference
+        global_matching_prepared_int8(q, b._replace(pixels=b.pixels.float()))
+    with pytest.raises(TypeError):
+        global_matching_prepared_int8(q.to(torch.int32), b)
+    # a contiguous reference one byte past an aligned address
+    buf = torch.empty(b.pixels.numel() + 1, dtype=torch.int8, device=cuda)
+    shifted = buf[1:].view_as(b.pixels)
+    shifted.copy_(b.pixels)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        global_matching_prepared_int8(q, b._replace(pixels=shifted))
+    q_hat = torch.zeros(64, 128, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):            # one scale pair per row
+        global_matching_int8_quantized(
+            q_hat, torch.zeros(63, 2, device=cuda), b)
