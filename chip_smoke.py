@@ -31,6 +31,17 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              frames and 2 of YUV 4:2:0 frames; 1 int8 global- and 1 local
              launch per observe, none per correction; then the f32 memory
              path (kernel 1's f32 variant) for 2 observes with 1 live page;
+   cp      — context-parallel serving on a ring of 4 members on the card:
+             kernel 6 at the cp stream's shape (a 1080p frame's 130,560
+             f32 queries against 4 pages, 522,240 rows) against the plain
+             ring and bit-identical to kernel 1's f32 variant over all
+             rows, rings of 1-3 members and 3 repeated 4-rings
+             bit-identical (and over distinct cards when there are two);
+             the 1080p f32 stream with `cp_mesh` (4 kernel-1 launches per
+             observe, masks equal to the single-device stream's); the
+             flagship at 480p with stacked memory, monolithic and in 4
+             segments, single-device and with `cp_mesh`: equal masks
+             every round, 1 / 4 kernel-1 launches per matching call;
    batch   — `BatchPropagator`, 4 clips x 16 frames at 480p, int8 and f32,
              rgb and yuv420 ingest, through the batch CLI's timing loops
              (`timed_batches`): B (T - 1) = 60 launches of the global
@@ -46,8 +57,9 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              and the serving kernels at none;
 6. result  — one JSON line of the kernels (launches: kernels 1-2 over the
              main path's 3 rounds, kernel 3 over serve_int8's 3 rounds,
-             kernels 4-5 per stage-1 step; the stream and batch phases log
-             their own), the nvidia-smi line, and the final
+             kernels 4-5 per stage-1 step, kernel 6 over the cp phase's
+             4-member ring; the stream, cp and batch phases log their
+             own), the nvidia-smi line, and the final
              `{"ok": true, "device": ...}` line.
 """
 
@@ -759,6 +771,294 @@ def stream_phase(dev, model_i8, model_f32, image_size=(1080, 1920),
         f" ms per frame")
 
 
+def ring_call(q, k, onehot, valid, devices):
+    """Kernel 6's ring (`context_parallel_matching`, schedule
+    "ring_kernel") over `devices`, timed over CUDA events on the caller's
+    stream, which the ring orders before its first step and after its
+    last. -> (result, ms)."""
+    from cvpr2020_manet_tpu_torch.parallel.cp_matching import (
+        context_parallel_matching)
+    from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
+    mesh = create_mesh(data=1, context=len(devices), devices=devices)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = context_parallel_matching(q, k, onehot, valid, mesh,
+                                    schedule="ring_kernel")
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def kernel_ring(dev, nq: int, page_rows: int, pages: int, c_real: int,
+                c: int, o: int):
+    """Kernel 6 at the cp stream's shape: a 1080p frame's f32 queries
+    against `pages` memory pages on a ring of `pages` members on one card,
+    2 live objects + background in an O=4 bucket (the last object has no
+    pixels). The 4-ring against the plain ring (tol) and bit-identical to
+    kernel 1's f32 variant over all rows; rings of 1 and 2 members and 3
+    repeated 4-rings bit-identical to it (the repeats are the timed runs);
+    a 3-ring over 3 pages bit-identical to kernel 1 and a 1-ring over them;
+    distinct cards when there are two."""
+    from cvpr2020_manet_tpu_torch.kernels import build
+    from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
+        global_matching_prepared, prepare_ref)
+    from cvpr2020_manet_tpu_torch.ops.ring_matching_cuda import (
+        ring_matching_step_plain)
+    from cvpr2020_manet_tpu_torch.parallel.cp_matching import ring_kernel
+    from cvpr2020_manet_tpu_torch.parallel.mesh import (
+        create_mesh, shard_context)
+    g = torch.Generator().manual_seed(6)
+    live = o - 1
+    nk = pages * page_rows
+    q, k, labels = global_inputs(g, nq, nk, c_real, c, live)
+    q, k = q.to(dev), k.to(dev)
+    onehot = torch.nn.functional.one_hot(labels, o).float().to(dev)
+    valid = torch.ones(nk, device=dev)
+    ring = [dev] * pages
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got, first_ms = ring_call(q, k, onehot, valid, ring)
+    launches = dict(build.LAUNCHES)
+    want_launches = {n: pages * pages if n == "ring_matching" else 0
+                     for n in launches}
+    require(launches == want_launches,
+            f"ring launched {launches}, expected {want_launches}")
+
+    mesh = create_mesh(data=1, context=pages, devices=ring)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ring_kernel(q, *(shard_context(x, mesh) for x in (k, onehot, valid)),
+                       ring, step_fn=ring_matching_step_plain)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err, share = check_outputs("ring matching", got, want, live,
+                               TOL_GLOBAL_F32)
+    del want
+    b = prepare_ref(k, onehot)
+    require(torch.equal(got, global_matching_prepared(q, b)),
+            "the ring is not bit-identical to kernel 1 over all rows")
+    n_rows = int((b.src_idx >= 0).sum())           # labelled reference pixels
+    bytes_in = nbytes(q, b.neg2pixels, b.sqnorm, b.block_obj, got)
+    del b
+    for n in range(1, pages):
+        if pages % n == 0:
+            out, _ = ring_call(q, k, onehot, valid, [dev] * n)
+            require(torch.equal(out, got),
+                    f"a {n}-member ring differs from the {pages}-ring")
+    reps = []
+    for _ in range(3):
+        out, t = ring_call(q, k, onehot, valid, ring)
+        require(torch.equal(out, got), "a repeated ring run differs")
+        reps.append(t)
+    ms = statistics.median(reps)
+    # the odd ring: 3 members over the first 3 pages
+    n3 = 3 * page_rows
+    sub = (k[:n3], onehot[:n3], valid[:n3])
+    out3, _ = ring_call(q, *sub, [dev] * 3)
+    require(torch.equal(out3, global_matching_prepared(
+        q, prepare_ref(k[:n3], onehot[:n3]))),
+        "the 3-ring is not bit-identical to kernel 1 over its rows")
+    require(torch.equal(ring_call(q, *sub, [dev])[0], out3),
+            "the 3-ring differs from a 1-ring over the same rows")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i)
+                 for i in range(pages if n_cards >= pages else 2)]
+        card_ms = []
+        for _ in range(4):                 # the first run pays each card's
+            out, t = ring_call(q, k, onehot, valid, cards)   # first use
+            require(torch.equal(out, got), "the ring over distinct cards "
+                    "differs from the one-card ring")
+            card_ms.append(t)
+        log(f"[cp] ring over {len(cards)} distinct cards (peer copies): "
+            f"bit-identical to the one-card ring; "
+            f"{', '.join(f'{t:.1f}' for t in card_ms)} ms")
+    else:
+        log(f"[cp] ring over distinct cards: not run, {n_cards} card "
+            "visible (the one-card rings share cuda:0)")
+    # the library's cross terms: each of the ring's members computes the
+    # whole Nq x Nk product on this card
+    one_ms, chunks = cross_term_ms(torch.matmul, q, k.T.contiguous(), 4,
+                                   reps=1)
+    library_ms = pages * one_ms
+    b_ms, b_by = bound(pages * 2.0 * nq * n_rows * c, H100_F32_FLOPS,
+                       bytes_in)
+    log(f"[cp] ring_matching (kernel 6) Nq={nq} Nk={nk} ({pages} pages, "
+        f"labelled {n_rows}) C={c} O={o} f32 on a {pages}-member ring on "
+        f"one card: {share:.3f} of live-object outputs below 0.99, "
+        f"max|err| vs the plain ring {err:.3g} (tol {TOL_GLOBAL_F32}); "
+        f"bit-identical to kernel 1 over all rows, to rings of 1 and 2 "
+        f"members and over 3 repeats (a 3-ring over 3 pages to kernel 1 "
+        f"and a 1-ring there); launches {launches}; "
+        f"ring {ms:.1f} ms (runs {', '.join(f'{t:.1f}' for t in reps)}; "
+        f"first {first_ms:.1f}), plain ring {plain_ms:.1f} ms, torch.matmul "
+        f"of the members' cross terms {library_ms:.1f} ms ({pages} x "
+        f"{one_ms:.1f} over {chunks} query chunks), bound {b_ms:.1f} ms by "
+        f"{b_by}")
+    return dict(name="ring_matching", route="cuda",
+                source="cvpr2020_manet_tpu_torch/csrc/ring_matching.cu",
+                replaces="cvpr2020_manet_tpu/ops/ring_matching_pallas.py:55",
+                launches=launches["ring_matching"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def cp_stream(dev, model, mesh, image_size=(1080, 1920), corrections=3,
+              observes=2) -> None:
+    """The 1080p f32 stream (default backend) single-device and with
+    `cp_mesh`, driven in lockstep: the same frames and corrections, equal
+    masks at every call; per observe 1 kernel-1 launch single-device and
+    one per member with the mesh, kernel 6 none (the allgather
+    schedule, as in JAX)."""
+    from cvpr2020_manet_tpu_torch.config import Config, EvalConfig
+    from cvpr2020_manet_tpu_torch.data import SyntheticDataset
+    from cvpr2020_manet_tpu_torch.engine.streaming import StreamingIVOS
+    from cvpr2020_manet_tpu_torch.interactive.robot import (
+        InteractiveScribblesRobot)
+    from cvpr2020_manet_tpu_torch.kernels import build
+
+    cfg = Config(model=model.cfg, eval=EvalConfig(image_size=image_size))
+    n_frames = corrections + observes
+    ds = SyntheticDataset(image_size=image_size, num_frames=n_frames,
+                          num_objects=2, num_sequences=1, scribble_sets=1)
+    seq = ds.sequences()[0]
+    gt = ds.gt_masks(seq)
+    u8 = (np.clip(ds.images(seq), 0, 1) * 255).astype(np.uint8)
+    robot = InteractiveScribblesRobot()
+    members = len(mesh.context_devices)
+    streams = {"single": StreamingIVOS(cfg, model, device=dev),
+               "cp": StreamingIVOS(cfg, model, device=dev, cp_mesh=mesh)}
+    per_observe = {"single": {"global_matching": 1, "local_matching": 1},
+                   "cp": {"global_matching": members, "local_matching": 1}}
+    for s in streams.values():
+        s.reset(2)
+
+    def both(call, arg):
+        out, ms = {}, {}
+        for name, s in streams.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name], n = launches_delta(lambda: getattr(s, call)(arg))
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            want = per_observe[name] if call == "observe" else {}
+            require(n == want, f"{name} stream {call} launched {n}")
+        require(np.array_equal(out["single"], out["cp"]),
+                f"cp stream {call}: masks differ from the single-device "
+                "stream's")
+        return out["cp"], ms
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for f in range(corrections):
+        pred, _ = both("observe", u8[f])
+        both("correct", robot.scribble_frame(pred, gt[f], 2, f, n_frames,
+                                             seq).to_json())
+    require(streams["cp"].live_pages() == 4,
+            f"{streams['cp'].live_pages()} live pages")
+    timed = [both("observe", f) for f in u8[corrections:]]
+    launches = dict(build.LAUNCHES)
+    require(launches["ring_matching"] == 0, "the cp stream launched kernel 6")
+    labelled = float(np.mean([(m > 0).mean() for m, _ in timed]))
+    ms = {name: ", ".join(f"{t[name]:.1f}" for _, t in timed)
+          for name in streams}
+    log(f"[cp] stream {image_size[0]}x{image_size[1]}, f32 memory, 4 live "
+        f"pages over {members} members on one card: observe {ms['cp']} ms "
+        f"(single-device {ms['single']} ms); masks equal to the "
+        f"single-device stream at all {2 * corrections + observes} calls; "
+        f"non-background share {labelled:.3f}; launches {launches} over "
+        f"{n_frames} observes and {corrections} corrections of each stream")
+
+
+def cp_eval(dev, model, mesh, image_size=(480, 854), n_frames=16, rounds=3,
+            segments=4) -> None:
+    """The flagship at 480p with stacked memory (3 slots), monolithic and
+    in `segments` spans, single-device and with `cp_mesh`, on the same
+    scribbles (the robot's on the first run's masks): equal masks every
+    round; per round 1 kernel-1 launch per matching call single-device
+    and one per member with the mesh (a matching call per span), and
+    n_frames - 1 local ones."""
+    import dataclasses
+    from cvpr2020_manet_tpu_torch.config import Config, EvalConfig
+    from cvpr2020_manet_tpu_torch.data import SyntheticDataset
+    from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+    from cvpr2020_manet_tpu_torch.interactive.robot import (
+        InteractiveScribblesRobot)
+    from cvpr2020_manet_tpu_torch.kernels import build
+
+    base = EvalConfig(image_size=image_size, max_interactions=rounds,
+                      matching_memory="stacked")
+    ds = SyntheticDataset(image_size=image_size, num_frames=n_frames,
+                          num_objects=2, num_sequences=1, scribble_sets=1)
+    seq = ds.sequences()[0]
+    gt = ds.gt_masks(seq)
+    n_obj = ds.num_objects(seq)
+    members = len(mesh.context_devices)
+    robot = InteractiveScribblesRobot()
+    scribbles, results = [], {}
+    for segs in (1, segments):
+        for name, cp_mesh in (("single", None), ("cp", mesh)):
+            cfg = Config(model=model.cfg,
+                         eval=dataclasses.replace(base, round_segments=segs))
+            ev = Evaluator(cfg, model, device=dev, cp_mesh=cp_mesh)
+            st = ev.start_sequence(ds.images(seq), n_obj)
+            masks, per_round, walls = np.zeros_like(gt), [], []
+            calls = len(ev._segment_spans(st.feat.shape[0])) \
+                if segs > 1 else 1
+            per_call = members if cp_mesh is not None else 1
+            want = {"global_matching": per_call * calls,
+                    "local_matching": n_frames - 1}
+            for r in range(rounds):
+                if len(scribbles) == r:
+                    scribbles.append(
+                        robot.interact(seq, masks, gt, n_obj).to_json())
+                torch.cuda.synchronize()
+                build.reset_launches()
+                t0 = time.perf_counter()
+                masks = ev.run_round(st, scribbles[r], gt.shape[1:], n_obj)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                launches = dict(build.LAUNCHES)
+                require(launches == {k: want.get(k, 0) for k in launches},
+                        f"cp eval ({name}, {segs} segments) round {r} "
+                        f"launched {launches}, expected {want}")
+                per_round.append(masks)
+            results[(name, segs)] = per_round
+            log(f"[cp] eval {image_size[0]}x{image_size[1]}, {n_frames} "
+                f"frames, stacked memory, {name}"
+                f"{f' ({members} members)' if cp_mesh is not None else ''}, "
+                f"{segs} segment{'s' if segs > 1 else ''}: rounds "
+                f"{', '.join(f'{t:.1f}' for t in walls)} ms; launches per "
+                f"round {want}")
+    ref = results[("single", 1)]
+    for key, per_round in results.items():
+        for r, (a, b) in enumerate(zip(ref, per_round)):
+            require(np.array_equal(a, b),
+                    f"cp eval {key} round {r}: masks differ from the "
+                    "single-device monolithic round's")
+    labelled = ", ".join(f"{(m > 0).mean():.3f}" for m in ref)
+    log(f"[cp] eval: masks of all {len(results)} variants equal in all "
+        f"{rounds} rounds (non-background shares {labelled})")
+
+
+def cp_phase(dev, model) -> dict:
+    """Context-parallel serving on a ring of 4 members on the card, each
+    part with the launch counters reset just before it. -> kernel 6's
+    entry of the kernels line."""
+    from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
+    t0 = time.perf_counter()
+    entry = kernel_ring(dev, 272 * 480, 272 * 480, 4, 100, 128, 4)
+    torch.cuda.empty_cache()
+    mesh = create_mesh(data=1, context=4, devices=[dev] * 4)
+    cp_stream(dev, model, mesh)
+    torch.cuda.empty_cache()
+    cp_eval(dev, model, mesh)
+    log(f"[cp] phase took {time.perf_counter() - t0:.1f} s")
+    return entry
+
+
 def batch_phase(dev, model, ingest: str, batch=4, n_frames=16,
                 image_size=(480, 864), batches=3) -> None:
     """BatchPropagator on `batches` synthetic batches of `batch` clips: one
@@ -880,6 +1180,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from cvpr2020_manet_tpu_torch.kernels import build
 
     # [1] device
@@ -951,6 +1252,8 @@ def main() -> int:
         uint8=True)["global_matching_int8"]
     stream_phase(dev, model_i8, model)
     torch.cuda.empty_cache()
+    kernels.append(cp_phase(dev, model))
+    torch.cuda.empty_cache()
     for m in (model_i8, model):
         for ingest in ("rgb", "yuv420"):
             batch_phase(dev, m, ingest)
@@ -960,9 +1263,11 @@ def main() -> int:
     # [5] training: the flagship model; launches per stage-1 step
     launches.update(train_phase(dev))
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if "launches" not in k:            # kernel 6 counts its own ring
+            k["launches"] = launches[k["name"]]
 
     # [6] result
+    log(f"[result] all phases took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}

@@ -2,9 +2,9 @@
 
 A copy of the JAX package's `config.py`, so that the two packages read the
 same fields with the same defaults. One default differs:
-`EvalConfig.round_segments` is 1 here, because the port runs the
-monolithic round only (segmented rounds give the same masks and exist to
-hide a slow device link; they are not ported yet).
+`EvalConfig.round_segments` is 1 here (5 in JAX): segmented rounds give
+the monolithic round's masks and exist to hide a slow device-to-host
+link, which the card's PCIe link is not; the port runs both.
 
 Object count, frame count and spatial dims are padded to fixed buckets, as
 in the JAX package, so that buffers keep their shapes across sequences.
@@ -104,25 +104,31 @@ class EvalConfig:
     # be < 8).
     frame_buckets: Tuple[int, ...] = (16, 32, 64, 104)
     # "min_fused": per-frame elementwise-min global-map memory (MANet
-    # semantics, SURVEY.md C8) — the only mode the port runs so far.
-    # "stacked" (matching against all stored rounds) is not ported yet.
+    # semantics, SURVEY.md C8). "stacked": matching against the annotated
+    # pixels of every stored round (max_interactions slots; the live ones
+    # are matched), the mode context-parallel eval shards.
     matching_memory: str = "min_fused"
-    # Leaky min-fusion (0.0 = reference semantics). Only 0.0 is ported.
+    # Leaky min-fusion: before each round the stored global-map minima
+    # relax toward 1.0 by this fraction (d -> 1 - (1 - d)(1 - refresh));
+    # 0.0 = reference semantics.
     gmap_refresh: float = 0.0
     # Mask readback stride: probabilities are bilinearly upsampled to
     # image_resolution/mask_stride, argmaxed, and the label map is
     # nearest-expanded on the host. 1 = exact full-resolution argmax.
     mask_stride: int = 1
-    # Number of dispatches the propagation sweep is split into. The port
-    # runs only the monolithic round (1); the Evaluator refuses other
-    # values until segmented rounds are ported.
+    # Number of spans the propagation sweep is split into (geometrically
+    # growing); each span's packed masks download while the next computes.
+    # 1 = the monolithic round. Both give the same masks.
     round_segments: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout. Multi-device execution is not ported yet; the
-    dataclass is kept so configs have the same fields."""
+    """Device-mesh layout. The engines take a `parallel.mesh.Mesh` as
+    `cp_mesh` (context-parallel serving: `create_mesh(data, context,
+    devices)`); no entry point reads these fields yet, and multi-process
+    data-parallel training is not ported. The dataclass keeps the JAX
+    package's fields."""
 
     data_axis: str = "data"
     context_axis: str = "context"

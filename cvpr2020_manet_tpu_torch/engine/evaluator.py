@@ -1,29 +1,35 @@
 """Interactive evaluation engine, PyTorch port of `engine/evaluator.py`.
 
 Per sequence the encoder runs once (`start_sequence`, in 8-frame chunks
-over a padded frame bucket). Per round (`dispatch_round`, the monolithic
-round of the JAX package):
+over a padded frame bucket). Per round (`dispatch_round`):
 
 1. the interaction head and the MA memory gate run on the annotated frame
-   (`_interaction`);
-2. the annotated frame's pixels are bucketed by object
-   (`MANet.prepare_ref`, quantized to int8 for a model with
-   `matching_backend="int8"`) and ONE global-matching launch
-   (`MANet.match_prepared`) covers all T-1 other frames;
+   (`_interaction`); the global-map memory relaxes toward 1.0 by
+   `gmap_refresh`, or resets with `ablate_memory`;
+2. the matching reference is the annotated frame's pixels (`min_fused`
+   memory) or, with `matching_memory="stacked"`, every round's annotated
+   pixels so far: this round's slot of the stacked memory is written in
+   place and the live slots (`live_page_bucket`) are matched. The
+   reference is bucketed by object once (`MANet.prepare_ref`, int8 for a
+   model with `matching_backend="int8"`) and one global-matching launch
+   per sweep call (`MANet.match_prepared`) covers its frames. With a
+   `cp_mesh` the reference rows shard over the mesh's context members
+   instead, and each member matches its shard (`parallel/cp_matching.py`);
 3. a (T-1)-step sweep visits frames annot+1 .. T-1, then annot-1 .. 0,
    resetting its carry to the interaction output where the backward sweep
    starts; each step runs local matching, min-fusion, the decomposed
    propagation head and a softmax;
-4. probabilities are upsampled, argmaxed and bit-packed (`_masks_impl`);
-   `collect_round` downloads and unpacks them.
+4. probabilities are upsampled, argmaxed and bit-packed (`_masks_impl`).
+   The monolithic round (`round_segments=1`) packs every frame at its end
+   and `collect_round` downloads them; a segmented round splits the sweep
+   into `round_segments` spans and hands each span's packed masks to the
+   download pool while the next span computes. Both give the same masks.
 
 Frames come as host-normalized floats or as raw uint8 RGB, which is
 padded with the ImageNet mean byte and normalized on the device.
 
 Everything runs under `torch.inference_mode()` on the evaluator's device
-(`cuda` unless the caller passes another). Not ported yet: segmented
-rounds, `stacked` matching memory, `gmap_refresh`, `ablate_memory`,
-context-parallel matching.
+(`cuda` unless the caller passes another).
 
 The helpers the serving engines share with the evaluator live here too:
 the mask bit-packing, the object, mask-bit and live-page buckets, and the
@@ -48,6 +54,8 @@ from cvpr2020_manet_tpu_torch.interactive.scribbles import (
     annotated_frames, scribbles2mask)
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 from cvpr2020_manet_tpu_torch.models.manet import NEG_INF, MANet
+from cvpr2020_manet_tpu_torch.parallel.cp_matching import (
+    check_cp_engine, cp_match_flat)
 from cvpr2020_manet_tpu_torch.utils.ingest import preprocess_frames
 
 # One process-wide pool for mask downloads (threads start on first use):
@@ -161,8 +169,12 @@ def unpack_labels(packed: np.ndarray, bits: int) -> np.ndarray:
 class RoundHandle:
     """Device outputs of one dispatched round, not yet downloaded."""
     pk: int                 # mask bits/px
+    annot: int              # annotated frame index
     nf: int                 # actual (unpadded) frame count
-    masks: Any = None       # (T, H, W * pk / 8) packed uint8, on the device
+    t_bucket: int
+    masks: Any = None       # monolithic: (T, H, W * pk / 8) packed, device
+    annot_mask: Any = None  # segmented: Future of the annotated frame's mask
+    seg_masks: list | None = None   # segmented: [(start, count, Future)]
 
 
 @dataclasses.dataclass
@@ -175,44 +187,58 @@ class SequenceState:
     int_mem: torch.Tensor | None     # (O, h, w, Cma) f32
     round_idx: int
     num_frames: int                  # actual (unpadded) frame count
+    # stacked matching memory only: the annotated pixels of every round so
+    # far, one slot of h*w rows per round, written in place
+    mem_emb: torch.Tensor | None = None      # (R_max * h * w, Ce)
+    mem_onehot: torch.Tensor | None = None   # (R_max * h * w, O) f32
 
 
 def release_state(state: SequenceState, keep_features: bool = False) -> None:
     """Drop a sequence state's device tensors now (not at GC time);
     `keep_features` keeps feat/emb for the same sequence's next set."""
     state.prev_masks = state.gmap_mem = state.int_mem = None
+    state.mem_emb = state.mem_onehot = None
     if not keep_features:
         state.feat = state.emb = None
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
 
 
 class Evaluator:
     """Runs a model against an `InteractiveSession`."""
 
-    def __init__(self, cfg: Config, model: MANet, device=None):
-        ev = cfg.eval
-        if ev.round_segments != 1:
-            raise NotImplementedError(
-                f"round_segments={ev.round_segments}: only the monolithic "
-                "round (1) is ported")
-        if ev.matching_memory != "min_fused":
-            raise NotImplementedError(
-                f"matching_memory={ev.matching_memory!r}: only 'min_fused' "
-                "is ported")
-        if ev.gmap_refresh != 0.0:
-            raise NotImplementedError("gmap_refresh > 0 is not ported")
+    def __init__(self, cfg: Config, model: MANet, device=None,
+                 ablate_memory: bool = False, cp_mesh=None):
+        """`ablate_memory`: switch off the cross-round memories (the
+        global-map min-fusion and the MA gate), so that every round
+        conditions only on its own scribbles and the previous masks.
+        `cp_mesh`: a `parallel.mesh.Mesh`; the matching-memory rows then
+        shard over its context members (`parallel/cp_matching.py`, the
+        allgather schedule)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.o = cfg.model.max_objects + 1
         self.stride = cfg.model.feature_stride
+        self.ablate_memory = ablate_memory
+        self.memory_mode = cfg.eval.matching_memory
+        if self.memory_mode not in ("min_fused", "stacked"):
+            raise ValueError(f"matching_memory={self.memory_mode!r}")
+        self.cp_mesh = cp_mesh
+        if cp_mesh is not None:
+            check_cp_engine(cp_mesh, self.device, model.matching_backend,
+                            "eval")
         self.round_latencies: list[float] = []
 
     # ---------------- device graph of one round ------------------------ #
 
-    def _interaction(self, feat, emb, raster, annot, prev_masks, int_mem,
-                     is_first, obj_valid):
-        """Scribble pooling, interaction branch, MA update, matching
-        reference labels. Returns (int_probs, int_mem, ref_emb, ref_onehot)."""
+    def _interaction(self, feat, emb, raster, annot, prev_masks, gmap_mem,
+                     int_mem, is_first, obj_valid):
+        """Scribble pooling, interaction branch, MA update, the global-map
+        memory's refresh, matching reference labels. Returns (int_probs,
+        int_mem, gmap_mem, ref_emb, ref_onehot)."""
         model = self.model
         h, w = feat.shape[1:3]
         o = prev_masks.shape[-1]
@@ -230,6 +256,14 @@ class Evaluator:
         neg_scr = blockmax(scr - oh)
         int_feats, int_logits = model.interact(feat[annot], pos_scr, neg_scr,
                                                prev_masks[annot])
+        if self.ablate_memory:
+            is_first = True                         # no MA fusion
+            gmap_mem = torch.ones_like(gmap_mem)    # no min-fusion
+        elif self.cfg.eval.gmap_refresh > 0.0:
+            # leaky min-fusion: stored minima relax toward 1.0 once per
+            # round
+            r = self.cfg.eval.gmap_refresh
+            gmap_mem = 1.0 - (1.0 - gmap_mem) * (1.0 - r)
         int_mem = model.aggregate_memory(int_feats, int_mem, is_first)
         int_logits = int_logits + (1.0 - obj_valid) * NEG_INF
         int_probs = torch.softmax(int_logits, dim=-1)
@@ -240,65 +274,106 @@ class Evaluator:
         lab = torch.where(scribbled, pos_scr.argmax(dim=-1), lab)
         ref_onehot = F.one_hot(lab.reshape(-1), o).float() * obj_valid
         ref_emb = emb[annot].reshape(-1, emb.shape[-1])
-        return int_probs, int_mem, ref_emb, ref_onehot
+        return int_probs, int_mem, gmap_mem, ref_emb, ref_onehot
 
-    def _round_impl(self, feat, emb, raster, annot: int, prev_masks, gmap_mem,
-                    int_mem, is_first: bool, obj_valid, frame_valid, *,
-                    mask_hw, pack):
+    def _start_impl(self, state: SequenceState, raster, annot: int,
+                    obj_valid, stack: tuple[int, int] | None) -> dict:
+        """The round head: interaction branch, the matching reference (in
+        stacked mode this round's slot of the memory, written in place,
+        and the live rows), the round-constant conv0 contributions of the
+        decomposed head, and the bucketed reference (not in cp mode: each
+        member buckets its own shard per matching call)."""
         model = self.model
-        t, h, w, ce = emb.shape
-        o = prev_masks.shape[-1]
-        int_probs, int_mem, ref_emb, ref_onehot = self._interaction(
-            feat, emb, raster, annot, prev_masks, int_mem, is_first,
-            obj_valid)
+        int_probs, int_mem, gmap_mem, ref_emb, ref_onehot = \
+            self._interaction(state.feat, state.emb, raster, annot,
+                              state.prev_masks, state.gmap_mem,
+                              state.int_mem, state.round_idx == 0, obj_valid)
+        if stack is not None:
+            # match against every stored round: rows of later slots are
+            # zero-onehot, and only the live slots are matched
+            slot, live_rows = stack
+            nq = ref_emb.shape[0]
+            rows = slice(slot * nq, (slot + 1) * nq)
+            state.mem_emb[rows] = ref_emb.to(state.mem_emb.dtype)
+            state.mem_onehot[rows] = ref_onehot
+            ref_emb = state.mem_emb[:live_rows]
+            ref_onehot = state.mem_onehot[:live_rows]
+        return dict(
+            int_probs=int_probs, int_mem=int_mem, gmap_mem=gmap_mem,
+            obj_valid=obj_valid,
+            ref_emb=ref_emb, ref_onehot=ref_onehot,
+            head_fp=model.head_feat_contrib(state.feat),
+            head_mp=model.head_mem_contrib(int_mem),
+            bucketed=(model.prepare_ref(ref_emb, ref_onehot)
+                      if self.cp_mesh is None else None))
 
-        # BOTH sweeps as ONE (T-1)-step schedule: step i visits frame[i];
-        # the carry resets to the interaction output where the backward
-        # sweep starts; every other frame is visited exactly once
-        idx = np.arange(t - 1)
+    def _sweep_impl(self, state: SequenceState, head: dict, annot: int,
+                    carry, probs, gmap, frame_valid, *, start: int,
+                    count: int):
+        """Propagate steps [start, start + count) of the round's (T-1)-step
+        schedule, writing into probs / gmap (the round's copies) in place.
+        Step i visits frame annot+1+i on the forward sweep, then annot-1-..
+        backward; the carry resets to the interaction output where the
+        backward sweep starts, so any split of the schedule computes the
+        monolithic round's masks. -> (carry, frames visited)."""
+        model, feat, emb = self.model, state.feat, state.emb
+        t, h, w, ce = emb.shape
+        o = probs.shape[-1]
+        idx = start + np.arange(count)
         fwd_len = t - 1 - annot
         frame = np.where(idx < fwd_len, annot + 1 + idx,
                          annot - 1 - (idx - fwd_len))
         prev_frame = np.where(idx < fwd_len, frame - 1, frame + 1)
         frame_t = torch.as_tensor(frame, device=emb.device)
-
-        # global matching does not depend on the carry: all T-1 frames go
-        # through ONE kernel launch against the bucketed reference, in the
-        # model's matching backend
-        bucketed = model.prepare_ref(ref_emb, ref_onehot)
-        gm_pre = model.match_prepared(
-            emb[frame_t].reshape(-1, ce), bucketed).reshape(t - 1, h, w, o)
-
-        # decomposed head stage 1: round-constant conv0 contributions
-        head_fp = model.head_feat_contrib(feat)
-        head_mp = model.head_mem_contrib(int_mem)
-
-        carry = int_probs
+        # global matching does not depend on the carry: all the span's
+        # frames in one matching call (one launch; cp: one per member)
+        query = emb[frame_t].reshape(-1, ce)
+        if self.cp_mesh is not None:
+            gm_pre = cp_match_flat(query, head["ref_emb"], head["ref_onehot"],
+                                   self.cp_mesh)
+        else:
+            gm_pre = model.match_prepared(query, head["bucketed"])
+        gm_pre = gm_pre.reshape(count, h, w, o)
+        ref_emb, ref_onehot = head["ref_emb"], head["ref_onehot"]
+        int_probs, int_mem = head["int_probs"], head["int_mem"]
         probs_seq, g_seq = [], []
-        for i in range(t - 1):
-            f = int(frame[i])
-            prev = int_probs if i == fwd_len else carry
+        for j in range(count):
+            f = int(frame[j])
+            prev = int_probs if idx[j] == fwd_len else carry
             logits, g_new = model.propagate(
-                feat[f], emb[f], ref_emb, ref_onehot, None, gmap_mem[f],
-                emb[int(prev_frame[i])], prev, int_mem, obj_valid,
-                gmap_override=gm_pre[i], head_pre=head_fp[f][None] + head_mp)
+                feat[f], emb[f], ref_emb, ref_onehot, None, gmap[f],
+                emb[int(prev_frame[j])], prev, int_mem, head["obj_valid"],
+                gmap_override=gm_pre[j],
+                head_pre=head["head_fp"][f][None] + head["head_mp"])
             carry = torch.softmax(logits, dim=-1)
             probs_seq.append(carry)
             g_seq.append(g_new)
+        # padding frames keep their state
+        fv = frame_valid[frame_t][:, None, None, None]
+        probs[frame_t] = torch.where(fv, torch.stack(probs_seq),
+                                     probs[frame_t])
+        gmap[frame_t] = torch.where(fv, torch.stack(g_seq), gmap[frame_t])
+        return carry, frame_t
 
-        # scatter back to frame order; the annotated frame keeps the
-        # interaction-branch result; padding frames keep their old state
-        probs = prev_masks.clone()
-        gmap = gmap_mem.clone()
-        if t > 1:
-            probs[frame_t] = torch.stack(probs_seq)
-            gmap[frame_t] = torch.stack(g_seq)
-        probs[annot] = int_probs
-        fv = frame_valid[:, None, None, None]
-        probs = torch.where(fv, probs, prev_masks)
-        gmap = torch.where(fv, gmap, gmap_mem)
-        return probs, gmap, int_mem, self._masks_impl(probs, hw=mask_hw,
-                                                      pack=pack)
+    def _segment_spans(self, t: int) -> list[tuple[int, int]]:
+        """Split the (t-1)-step schedule into round_segments spans that
+        grow about 2x each: the first segment's masks start downloading
+        early and the larger later ones compute under the earlier
+        downloads. The last span is the largest."""
+        n = t - 1
+        if n == 0:
+            return []
+        s = min(self.cfg.eval.round_segments, n)
+        total = (1 << s) - 1
+        spans, pos, cum = [], 0, 0
+        for i in range(s):
+            cum += 1 << i
+            end = n if i == s - 1 else min(
+                max(round(n * cum / total), pos + 1),  # >= 1 per span
+                n - (s - 1 - i))                       # >= 1 per later span
+            spans.append((pos, end - pos))
+            pos = end
+        return spans
 
     def _masks_impl(self, probs, *, hw, pack):
         """(T, h, w, O) -> (T, H, W * pack / 8) bit-packed argmax labels."""
@@ -369,12 +444,19 @@ class Evaluator:
         dev = feat.device
         prev = torch.zeros((t, h, w, o), dtype=torch.float32, device=dev)
         prev[..., 0] = 1.0
+        mem_emb = mem_onehot = None
+        if self.memory_mode == "stacked":
+            m = self.cfg.eval.max_interactions * h * w
+            mem_emb = torch.zeros((m, emb.shape[-1]), dtype=emb.dtype,
+                                  device=dev)
+            mem_onehot = torch.zeros((m, o), dtype=torch.float32, device=dev)
         return SequenceState(
             feat=feat, emb=emb, prev_masks=prev,
             gmap_mem=torch.ones((t, h, w, o), dtype=torch.float32, device=dev),
             int_mem=torch.zeros((o, h, w, self.cfg.model.ma_channels),
                                 dtype=torch.float32, device=dev),
-            round_idx=0, num_frames=t_actual)
+            round_idx=0, num_frames=t_actual,
+            mem_emb=mem_emb, mem_onehot=mem_onehot)
 
     def reset_rounds(self, state: SequenceState,
                      num_objects: int | None = None) -> SequenceState:
@@ -405,9 +487,12 @@ class Evaluator:
     @torch.inference_mode()
     def dispatch_round(self, state: SequenceState, raster: np.ndarray,
                        annot: int, num_objects: int) -> RoundHandle:
-        """Enqueue one round's device work with no device->host transfer,
-        updating `state` in place. `raster` is the annotated frame's
-        scribble raster padded to `pad_to` (-1 = unscribbled)."""
+        """Enqueue one round's device work, updating `state` in place.
+        `raster` is the annotated frame's scribble raster padded to
+        `pad_to` (-1 = unscribbled). With round_segments > 1 the sweep
+        runs in segments, and each segment's packed masks go to the
+        download pool while the next segment computes; the monolithic
+        round packs all frames at its end, for `collect_round`."""
         cfg = self.cfg
         dev = self.device
         o_bucket = state.prev_masks.shape[-1]
@@ -422,19 +507,65 @@ class Evaluator:
         mask_hw = (raster.shape[0] // ms, raster.shape[1] // ms)
         pk = aligned_mask_bits(num_objects + 1, mask_hw[1])
         raster_t = torch.as_tensor(np.asarray(raster, np.int8), device=dev)
-        probs, gmap, int_mem, masks = self._round_impl(
-            state.feat, state.emb, raster_t, int(annot), state.prev_masks,
-            state.gmap_mem, state.int_mem, state.round_idx == 0, obj_valid,
-            frame_valid, mask_hw=mask_hw, pack=pk)
-        state.prev_masks, state.gmap_mem, state.int_mem = probs, gmap, int_mem
+        stack = None
+        if self.memory_mode == "stacked":
+            cap = cfg.eval.max_interactions
+            slot = min(state.round_idx, cap - 1)   # past capacity: the last
+            h, w = state.feat.shape[1:3]
+            stack = (slot, live_page_bucket(slot + 1, cap) * h * w)
+        annot = int(annot)
+        head = self._start_impl(state, raster_t, annot, obj_valid, stack)
+        # the round's copies of the per-frame state; the annotated frame
+        # keeps the interaction-branch result
+        probs = state.prev_masks.clone()
+        probs[annot] = head["int_probs"]
+        gmap = head["gmap_mem"].clone()
+        carry = head["int_probs"]
+        handle = RoundHandle(pk=pk, annot=annot, nf=state.num_frames,
+                             t_bucket=t_bucket)
+        if cfg.eval.round_segments > 1:
+            handle.annot_mask = _FETCH_POOL.submit(
+                _download, self._masks_impl(head["int_probs"][None],
+                                            hw=mask_hw, pack=pk))
+            handle.seg_masks = []
+            for s0, c in self._segment_spans(t_bucket):
+                carry, frames = self._sweep_impl(
+                    state, head, annot, carry, probs, gmap, frame_valid,
+                    start=s0, count=c)
+                mk = self._masks_impl(probs[frames], hw=mask_hw, pack=pk)
+                handle.seg_masks.append(
+                    (s0, c, _FETCH_POOL.submit(_download, mk)))
+        else:
+            if t_bucket > 1:
+                self._sweep_impl(state, head, annot, carry, probs, gmap,
+                                 frame_valid, start=0, count=t_bucket - 1)
+            handle.masks = self._masks_impl(probs, hw=mask_hw, pack=pk)
+        state.prev_masks, state.gmap_mem = probs, gmap
+        state.int_mem = head["int_mem"]
         state.round_idx += 1
-        return RoundHandle(pk=pk, nf=state.num_frames, masks=masks)
+        return handle
 
     def collect_round(self, handle: RoundHandle,
                       image_hw: tuple[int, int]) -> np.ndarray:
-        """Download + unpack a dispatched round's (T_actual, H, W) labels."""
-        masks = unpack_labels(handle.masks[:handle.nf].cpu().numpy(),
-                              handle.pk)
+        """Download (monolithic) or gather (segmented) a dispatched
+        round's (T_actual, H, W) labels."""
+        pk = handle.pk
+        if handle.masks is not None:
+            masks = unpack_labels(_download(handle.masks[:handle.nf]), pk)
+        else:
+            lab_annot = unpack_labels(handle.annot_mask.result(), pk)[0]
+            nf = handle.nf
+            masks = np.zeros((nf, *lab_annot.shape), np.uint8)
+            masks[handle.annot] = lab_annot
+            fwd_len = handle.t_bucket - 1 - handle.annot
+            for s0, c, fut in handle.seg_masks:
+                lab = unpack_labels(fut.result(), pk)
+                for j in range(c):
+                    i = s0 + j
+                    f = (handle.annot + 1 + i if i < fwd_len
+                         else handle.annot - 1 - (i - fwd_len))
+                    if f < nf:
+                        masks[f] = lab[j]
         ms = self.cfg.eval.mask_stride
         if ms > 1:
             masks = np.repeat(np.repeat(masks, ms, axis=1), ms, axis=2)

@@ -27,8 +27,14 @@ Masks are bit-packed at the live label count. A frame takes raw uint8 RGB
 
 The memory is f32, as in JAX. With the default matching backend a bf16
 query meets it in f32 (kernel 1's f32 variant); with
-`matching_backend="int8"` both are quantized to int8 (kernel 3). The
-context-parallel mode (`cp_mesh` in JAX) is not ported yet.
+`matching_backend="int8"` both are quantized to int8 (kernel 3).
+
+With a `cp_mesh` (`parallel/mesh.py`) the live pages shard over the mesh's
+context members: each member matches its rows (kernel 1 on a card, one
+launch per member and observe), the results meet in a min
+(`parallel/cp_matching.py`, the allgather schedule), and the map goes to
+the propagation head as its global matching. The int8 backend has no
+context-parallel fold and raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -46,15 +52,24 @@ from cvpr2020_manet_tpu_torch.interactive.scribbles import (
     annotated_frames, scribble_masks_per_object, scribbles2mask)
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 from cvpr2020_manet_tpu_torch.models.manet import NEG_INF, MANet
+from cvpr2020_manet_tpu_torch.parallel.cp_matching import (
+    check_cp_engine, cp_match_flat)
 from cvpr2020_manet_tpu_torch.utils.ingest import (
     preprocess_frames, preprocess_yuv420)
 
 
 class StreamingIVOS:
-    def __init__(self, cfg: Config, model: MANet, device=None):
+    def __init__(self, cfg: Config, model: MANet, device=None,
+                 cp_mesh=None):
+        """`cp_mesh`: a `parallel.mesh.Mesh` over which the live memory
+        pages shard (context-parallel matching)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.cp_mesh = cp_mesh
+        if cp_mesh is not None:
+            check_cp_engine(cp_mesh, self.device, model.matching_backend,
+                            "streaming")
         self.o = cfg.model.max_objects + 1
         self.stride = cfg.model.feature_stride
         h, w = cfg.eval.image_size
@@ -138,11 +153,17 @@ class StreamingIVOS:
         feat, emb = model.extract_features(self._frame(image)[None])
         f_t, e_t = feat[0], emb[0]
         head_fp = model.head_feat_contrib(feat)
+        gmap_override = None
+        if self.cp_mesh is not None:
+            gmap_override = cp_match_flat(
+                e_t.reshape(-1, e_t.shape[-1]), mem_emb, mem_onehot,
+                self.cp_mesh).reshape(self.hh, self.ww, o)
         logits, _ = model.propagate(
             f_t, e_t, mem_emb, mem_onehot, None,
             torch.ones((self.hh, self.ww, o), dtype=torch.float32,
                        device=self.device),
             st["prev_emb"], st["prev_probs"], st["int_mem"], st["obj_valid"],
+            gmap_override=gmap_override,
             head_pre=head_fp + st["head_mem_pre"])
         probs = torch.softmax(logits, dim=-1)
         if st["rounds"] == 0:

@@ -14,7 +14,10 @@ ones:
 - `stream`: one 1080p `StreamingIVOS.observe` of a uint8 frame with the
   int8 matching backend, after 3 corrections (4 live memory pages);
 - `batch`: one `BatchPropagator.propagate` of 4 clips x `--frames` frames
-  at 480p, uint8 RGB, int8 matching.
+  at 480p, uint8 RGB, int8 matching;
+- `cp_stream`: the `stream` step with the default backend (f32 memory)
+  and its live pages sharded over 4 context members on the card
+  (`cp_mesh`).
 
 Prints the step's wall time, the device-busy time (the sum of kernel
 durations on the one stream) and idle share, the device time by layer
@@ -93,18 +96,23 @@ def round_step(cfg, frames: int):
     return prepare, run
 
 
-def stream_step(cfg):
-    """-> (prepare, run): one 1080p int8 observe with 4 live pages."""
+def stream_step(cfg, cp: bool = False):
+    """-> (prepare, run): one 1080p observe with 4 live pages, int8; with
+    `cp`, f32 memory sharded over 4 members on the card."""
     import dataclasses
     from cvpr2020_manet_tpu_torch.data import SyntheticDataset
     from cvpr2020_manet_tpu_torch.engine.streaming import StreamingIVOS
     from cvpr2020_manet_tpu_torch.interactive.robot import (
         InteractiveScribblesRobot)
     from cvpr2020_manet_tpu_torch.models import MANet
+    from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
     cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
         cfg.eval, image_size=(1080, 1920)))
+    mesh = create_mesh(data=1, context=4, devices=["cuda"] * 4) if cp \
+        else None
     s = StreamingIVOS(cfg, MANet(cfg.model, device="cuda", seed=0,
-                                 matching_backend="int8"))
+                                 matching_backend="auto" if cp else "int8"),
+                      cp_mesh=mesh)
     ds = SyntheticDataset(image_size=cfg.eval.image_size, num_frames=4,
                           num_objects=2, num_sequences=1, scribble_sets=1)
     seq = ds.sequences()[0]
@@ -139,7 +147,8 @@ def batch_step(cfg, frames: int, batch: int = 4):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=["round", "stream", "batch"],
+    ap.add_argument("--path", choices=["round", "stream", "batch",
+                                       "cp_stream"],
                     default="round")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--out", default=None)
@@ -151,7 +160,9 @@ def main(argv=None) -> dict:
     cfg = Config(model=ModelConfig(), eval=EvalConfig())
     prepare, run = {"round": lambda: round_step(cfg, args.frames),
                     "stream": lambda: stream_step(cfg),
-                    "batch": lambda: batch_step(cfg, args.frames)}[args.path]()
+                    "batch": lambda: batch_step(cfg, args.frames),
+                    "cp_stream": lambda: stream_step(cfg, cp=True),
+                    }[args.path]()
 
     def timed():
         prepare()

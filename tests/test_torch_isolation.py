@@ -19,6 +19,7 @@ from cvpr2020_manet_tpu_torch.engine.streaming import StreamingIVOS
 from cvpr2020_manet_tpu_torch.engine.train_stage1 import Trainer
 from cvpr2020_manet_tpu_torch.engine.train_stage2 import Stage2Trainer
 from cvpr2020_manet_tpu_torch.models import MANet
+from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "PIL",
              "cvpr2020_manet_tpu")
@@ -45,8 +46,9 @@ def test_port_sources_import_nothing_forbidden():
 def test_tiny_round_in_fresh_process_loads_no_jax():
     """tests/conftest.py imports jax into this process, so the check runs
     in a subprocess: one tiny CPU session (int8 matching, uint8 frames),
-    one tiny step of each trainer, a few streamed frames and one batch of
-    propagation, then sys.modules is inspected."""
+    one tiny step of each trainer, a few streamed frames, one batch of
+    propagation and the three context-parallel schedules on CPU members,
+    then sys.modules is inspected."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -61,7 +63,12 @@ def test_tiny_round_in_fresh_process_loads_no_jax():
             InteractiveSession)
         from cvpr2020_manet_tpu_torch.models import MANet
         import cvpr2020_manet_tpu_torch.ops.trainable
+        import cvpr2020_manet_tpu_torch.ops.ring_matching_cuda
+        import cvpr2020_manet_tpu_torch.parallel.ring
         import cvpr2020_manet_tpu_torch.utils.checkpoint
+        from cvpr2020_manet_tpu_torch.parallel.cp_matching import (
+            context_parallel_matching)
+        from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
         cfg = tiny_test_config()
         ds = SyntheticDataset(image_size=cfg.eval.image_size,
                               num_frames=cfg.eval.max_frames,
@@ -83,6 +90,13 @@ def test_tiny_round_in_fresh_process_loads_no_jax():
         s.observe(u8[0])
         s.correct(ds.initial_scribbles(seq, 0).to_json())
         assert s.observe_async(u8[1]).result().shape == u8.shape[1:3]
+        import torch
+        mesh = create_mesh(data=1, context=2, devices=["cpu", "cpu"])
+        q, k = torch.randn(8, 16), torch.randn(32, 16)
+        oh, valid = torch.eye(3)[torch.arange(32) % 3], torch.ones(32)
+        for schedule in ("allgather", "ring", "ring_kernel"):
+            assert context_parallel_matching(q, k, oh, valid, mesh,
+                                             schedule).shape == (8, 3)
         labels = BatchPropagator(cfg, model, ingest="yuv420",
                                  device="cpu").propagate(
             u8[None], ds.gt_masks(seq)[None, 0, ::4, ::4], np.array([2]))
@@ -128,13 +142,35 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert Evaluator(cfg, model, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("field,value", [("round_segments", 5),
-                                         ("matching_memory", "stacked"),
-                                         ("gmap_refresh", 0.5)])
-def test_unported_eval_options_raise(field, value):
-    import dataclasses
+def test_create_mesh_raises_without_cuda(monkeypatch):
+    """The default mesh is every visible card: without CUDA it raises
+    instead of building a mesh of CPU members."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_mesh()
+    cpu = torch.device("cpu")
+    assert create_mesh(data=1, context=2,
+                       devices=[cpu, cpu]).context_devices == [cpu, cpu]
+
+
+@pytest.mark.parametrize("engine", [Evaluator, StreamingIVOS])
+def test_int8_with_cp_mesh_raises(engine):
+    """int8 matching has no context-parallel fold: both engines refuse the
+    pair, as in JAX, instead of matching in f32."""
     cfg = tiny_test_config()
-    cfg = dataclasses.replace(
-        cfg, eval=dataclasses.replace(cfg.eval, **{field: value}))
-    with pytest.raises(NotImplementedError):
-        Evaluator(cfg, MANet(cfg.model, device="cpu"), device="cpu")
+    mesh = create_mesh(data=1, context=2, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="int8"):
+        engine(cfg, MANet(cfg.model, device="cpu", matching_backend="int8"),
+               device="cpu", cp_mesh=mesh)
+    engine(cfg, MANet(cfg.model, device="cpu"), device="cpu", cp_mesh=mesh)
+
+
+@pytest.mark.parametrize("engine", [Evaluator, StreamingIVOS])
+def test_cp_mesh_of_another_device_type_raises(engine):
+    """The cp_mesh members must be of the engine's device type: an engine
+    whose members lie elsewhere would run its global matching on another
+    device, through another path than its own, so both engines refuse."""
+    cfg = tiny_test_config()
+    mesh = create_mesh(data=1, context=2, devices=["cuda:0", "cuda:0"])
+    with pytest.raises(ValueError, match="members"):
+        engine(cfg, MANet(cfg.model, device="cpu"), device="cpu", cp_mesh=mesh)

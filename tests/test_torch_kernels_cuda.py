@@ -15,6 +15,12 @@ cross terms exactly (in int32, and in f32 below 2^24) and round the same
 f32 epilogue in the same order, so they differ only in the exp of the
 normalization: 1e-5.
 
+The ring kernel (kernel 6), driven by the ring rotation on members that
+share one card, agrees with the same ring on its plain version to 1e-5
+(another f32 summation order), and is bit-identical to kernel 1's f32
+variant over all rows: both take each pair's cross term as one fmaf chain
+over the channels in order, and a min is exact.
+
 The argmin kernels' winners must equal the plain versions' wherever the
 best candidate beats the second best by more than the distance tolerance
 (closer pairs may swap under another summation order). The trainable
@@ -38,8 +44,13 @@ from cvpr2020_manet_tpu_torch.ops.local_matching_cuda import (
     local_matching_prepared, local_matching_prepared_argmin,
     local_matching_prepared_argmin_plain, local_matching_prepared_plain,
     prepare_local)
+from cvpr2020_manet_tpu_torch.ops.ring_matching_cuda import (
+    RingShard, ring_matching_step, ring_matching_step_plain)
 from cvpr2020_manet_tpu_torch.ops.trainable import (
     GlobalMatchingTrainable, LocalMatchingTrainable)
+from cvpr2020_manet_tpu_torch.parallel.cp_matching import (
+    context_parallel_matching, ring_kernel)
+from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh, shard_context
 
 pytestmark = pytest.mark.cuda
 
@@ -378,3 +389,53 @@ def test_int8_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):            # one scale pair per row
         global_matching_int8_quantized(
             q_hat, torch.zeros(63, 2, device=cuda), b)
+
+
+@pytest.mark.parametrize("n,dtype", [(1, torch.float32), (2, torch.float32),
+                                     (3, torch.float32), (4, torch.float32),
+                                     (4, torch.bfloat16)])
+def test_ring_kernel_matches_plain(cuda, n, dtype):
+    """Kernel 6 on a ring of n members on one card: n x n launches, within
+    1e-5 of the plain ring, bit-identical to kernel 1's f32 variant over
+    all rows (a bf16 query is promoted to f32)."""
+    rng = np.random.default_rng(8)
+    nq, nk, c, o = 300, 1536, 100, 4
+    q, k = _noisy_copies(rng, nk, nq, c, cuda, torch.float32)
+    q = q.to(dtype)
+    labels = rng.integers(0, o - 1, size=nk)           # object o-1 is empty
+    onehot = torch.tensor(np.eye(o)[labels], dtype=torch.float32, device=cuda)
+    valid = torch.tensor(rng.random(nk) > 0.2, device=cuda)
+    mesh = create_mesh(data=1, context=n, devices=[cuda] * n)
+    before = dict(build.LAUNCHES)
+    got = context_parallel_matching(q, k, onehot, valid, mesh,
+                                    schedule="ring_kernel")
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ring_matching"] == before["ring_matching"] + n * n
+    assert build.LAUNCHES["global_matching"] == before["global_matching"]
+    plain = ring_kernel(q, *(shard_context(x, mesh)
+                             for x in (k, onehot, valid)),
+                        mesh.context_devices,
+                        step_fn=ring_matching_step_plain)
+    assert got.shape == (nq, o) and got.dtype == torch.float32
+    assert (plain < 0.9).float().mean() > 0.05    # the check is not vacuous
+    torch.testing.assert_close(got, plain, **TOL)
+    assert (got[:, o - 1] == 1.0).all()
+    whole = global_matching_prepared(q.float(), prepare_ref(
+        k, onehot * valid.float()[:, None]))
+    assert torch.equal(got, whole)
+
+
+def test_ring_step_rejects_bad_inputs(cuda):
+    k = torch.randn(512, 128, device=cuda)
+    b = prepare_ref(k, torch.ones(512, 2, device=cuda))
+    shard = RingShard(b.neg2pixels, b.sqnorm, b.block_obj)
+    q = torch.randn(64, 128, device=cuda)
+    acc, out = torch.empty(64, 2, device=cuda), torch.empty(64, 2, device=cuda)
+    with pytest.raises(TypeError):                 # f32 only
+        ring_matching_step(q.to(torch.bfloat16), shard, acc, out,
+                           first=True, last=True)
+    with pytest.raises(ValueError):                # one acc row per query
+        ring_matching_step(q[:63], shard, acc, out, first=True, last=True)
+    with pytest.raises(ValueError):                # not contiguous
+        ring_matching_step(q.t().contiguous().t(), shard, acc, out,
+                           first=True, last=True)
