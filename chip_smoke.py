@@ -8,15 +8,21 @@ imports nothing of JAX. Phases (any failure exits non-zero):
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — nvcc builds every kernel from `cvpr2020_manet_tpu_torch/csrc`;
+             each kernel's registers, shared memory and spills (ptxas),
+             and the tensor-core route of the f32 kernel (its wgmma
+             instructions, read from the built library's SASS);
 3. kernels — each kernel against its plain PyTorch version at the shapes
              and dtypes of the path that runs it (max abs error vs a stated
              tolerance, median ms over CUDA events, the plain version's ms,
              the bound, and a library call's ms where one exists): the
              serving kernels at 480p, the int8 kernel at the 480p round
-             and at one 1080p memory page, kernel 1's f32 variant at that
-             page (the f32 stream's shape), the argmin kernels at the
-             training shapes, with their winners and the gradients of the
-             trainable Functions; then one tiny round on the card against
+             and at one 1080p memory page, kernel 1's f32 variant (3xTF32)
+             at that page (the f32 stream's shape), the argmin kernels at
+             the training shapes, with their winners and the gradients of
+             the trainable Functions, kernel 4 with its key splits and
+             with exact ties across them (kernel 4 and its library call,
+             a fraction of a millisecond each, timed over runs of
+             back-to-back calls); then one tiny round on the card against
              the same round on the CPU;
 4. main    — the flagship ModelConfig() (ResNet-101, bf16, random weights
              from a seed) through `Evaluator.run_session` on a synthetic
@@ -66,6 +72,8 @@ imports nothing of JAX. Phases (any failure exits non-zero):
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -76,7 +84,9 @@ import torch
 
 H100_BF16_FLOPS = 989e12      # dense tensor-core bf16 peak (data sheet)
 H100_INT8_OPS = 1979e12       # dense tensor-core int8 peak (data sheet)
+H100_TF32_FLOPS = 495e12      # dense tensor-core TF32 peak (data sheet)
 H100_F32_FLOPS = 67e12        # f32 outside the tensor cores (data sheet)
+H100_LANES_PER_SM = 128       # f32 lanes of an SM's CUDA cores
 H100_BYTES_PER_S = 3.35e12    # HBM3 (data sheet)
 
 # Both sides form the same products exactly and accumulate them in f32 in
@@ -87,10 +97,14 @@ H100_BYTES_PER_S = 3.35e12    # HBM3 (data sheet)
 # distance, and the normalization's slope is at most 1/2.
 TOL_GLOBAL = 5e-4
 TOL_LOCAL = 1e-4
-# Kernel 1's f32 FMA variant (the stream's f32 memory) and its plain
-# version (TF32 off) both form f32 products and sum them in f32 in
-# another order: ~1e-6 relative of distances of ~1e1 at this embedding
-# scale, halved by the normalization's slope.
+# Kernel 1's f32 variant (the stream's f32 memory; kernel 6 is the same
+# kernel) runs 3xTF32 on the tensor cores: each operand is split into two
+# TF32 halves, the three products that matter are exact, the dropped
+# lo x lo product is below 2^-22 of a product, and the tensor cores' sums
+# (not rounded to nearest) run over 32 channels before an f32 add. Against
+# the plain version (TF32 off, f32 products summed in another order) that
+# is a few ulps of cross terms of ~1e1 at this embedding scale, ~1e-5 in
+# the distance, halved by the normalization's slope.
 TOL_GLOBAL_F32 = 1e-4
 # The int8 kernel and its plain version form the same integer cross terms
 # exactly and round the same f32 epilogue in the same order; only the exp
@@ -145,6 +159,26 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def stream_ms(fn, reps: int = 50, rounds: int = 5) -> float:
+    """A kernel's device time: CUDA events around `reps` back-to-back calls
+    (the host queues them ahead of the card), over the count; median of
+    `rounds`. Unlike `time_ms` it leaves out the host's work per call
+    where the card is the slower side."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -243,9 +277,11 @@ def cross_term_ms(mm, q: torch.Tensor, kt: torch.Tensor, out_bytes: int,
 def kernel_global(dev, nq: int, nk: int, c_real: int, c: int, o: int,
                   dtype: torch.dtype, what: str):
     """Kernel 1 at one of its paths' shapes: Nq queries against Nk
-    reference rows of `dtype` (bf16: the round, on the tensor cores; f32:
-    the stream's f32 memory, on the FMA variant), 2 live objects +
-    background in an O=4 bucket (the last object has no pixels)."""
+    reference rows of `dtype` (bf16: the round, on the bf16 tensor cores;
+    f32: the stream's f32 memory, 3xTF32 on the tensor cores), 2 live
+    objects + background in an O=4 bucket (the last object has no
+    pixels). The f32 bound is 3 TF32 products per pair; the f32 FMA bound
+    (the CUDA cores) is logged beside it."""
     from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
         global_matching_prepared, global_matching_prepared_plain, prepare_ref)
     bf16 = dtype == torch.bfloat16
@@ -268,14 +304,20 @@ def kernel_global(dev, nq: int, nk: int, c_real: int, c: int, o: int,
     library_ms, chunks = cross_term_ms(torch.matmul, q, k.T.contiguous(),
                                        q.element_size(), reps)
     n_rows = int((b.src_idx >= 0).sum())       # labelled reference pixels
-    b_ms, b_by = bound(2.0 * nq * n_rows * c,
-                       H100_BF16_FLOPS if bf16 else H100_F32_FLOPS,
-                       nbytes(q, b.neg2pixels, b.sqnorm, b.block_obj, got))
+    pairs = 2.0 * nq * n_rows * c
+    in_out = nbytes(q, b.neg2pixels, b.sqnorm, b.block_obj, got)
+    if bf16:
+        b_ms, b_by = bound(pairs, H100_BF16_FLOPS, in_out)
+        how = "f32 accumulation in another order, in the tensor cores"
+    else:
+        b_ms, b_by = bound(3 * pairs, H100_TF32_FLOPS, in_out)
+        fma_ms = bound(pairs, H100_F32_FLOPS, in_out)[0]
+        how = (f"3xTF32 on the tensor cores; 3 TF32 products per pair, the "
+               f"f32 FMA bound would be {fma_ms:.3f} ms")
     log(f"[kernels] global_matching ({what}) Nq={nq} Nk={nk} (labelled "
         f"{n_rows}) C={c} O={o} {str(dtype)[6:]}: {share:.3f} of "
         f"live-object outputs below 0.99 (min {MIN_UNSATURATED}), "
-        f"max|err|={err:.3g} (tol {tol}: f32 accumulation in another order"
-        f"{', in the tensor cores' if bf16 else ''}); kernel {ms:.3f} ms, "
+        f"max|err|={err:.3g} (tol {tol}: {how}); kernel {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, cross-term GEMM only (torch.matmul over "
         f"{chunks} query chunks) {library_ms:.3f} ms, bound {b_ms:.3f} ms by "
         f"{b_by}")
@@ -435,12 +477,40 @@ def local_gaps(q, k, kno, window: int) -> torch.Tensor:
     return second - best
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), for CUDA-core bounds."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+# Lane operations per candidate of the argmin epilogue: the add of |k|^2,
+# the compare, and the two selects of (min, row).
+ARGMIN_LANE_OPS = 4.5
+
+
+def argmin_epilogue_ms(nq: int, b) -> float:
+    """The CUDA-core floor of kernel 4's argmin epilogue: ARGMIN_LANE_OPS
+    per candidate over Nq x the live k-blocks' rows (padding rows
+    included), on every f32 lane of the card at its maximum clock."""
+    live = int((b.block_obj < b.num_objects).sum())
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count \
+        * H100_LANES_PER_SM
+    cands = nq * live * b.sqnorm.shape[1]
+    return ARGMIN_LANE_OPS * cands / (lanes * sm_clock_hz()) * 1e3
+
+
 def kernel_global_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
                          o: int):
     """Kernel 4 at the training shape: one crop's features (Nq = Nk = h w)
     against its reference frame, bf16, O = 9 with the last object
-    pixel-less; winners, and the routed gradients."""
+    pixel-less; its key splits, winners, and the routed gradients. The
+    bound is the larger of the tensor cores' products and the argmin
+    epilogue's floor on the CUDA cores."""
     from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
+        ARGMIN_BLOCKS_PER_SM, ARGMIN_QUERY_TILE, argmin_splits,
         global_matching_prepared_argmin,
         global_matching_prepared_argmin_plain, prepare_ref)
     from cvpr2020_manet_tpu_torch.ops.trainable import GlobalMatchingTrainable
@@ -452,6 +522,14 @@ def kernel_global_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
     q, k = q.to(dev, torch.bfloat16), k.to(dev, torch.bfloat16)
     onehot = torch.nn.functional.one_hot(labels, o).float().to(dev)
     b = prepare_ref(k, onehot)
+    splits = argmin_splits(nq, b, dev)
+    tiles = -(-nq // ARGMIN_QUERY_TILE)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[kernels] global_matching_argmin at the training shape: S = "
+        f"{splits} key splits, grid {tiles} x {splits} = {tiles * splits} "
+        f"blocks ({ARGMIN_BLOCKS_PER_SM} resident per SM on {sms} SMs), "
+        f"{int((b.block_obj < o).sum())} live of {b.block_obj.numel()} "
+        f"k-blocks of {b.sqnorm.shape[1]} rows")
     got, got_idx = global_matching_prepared_argmin(q, b)
     want, want_idx = global_matching_prepared_argmin_plain(q, b)
     torch.cuda.synchronize()
@@ -470,28 +548,114 @@ def kernel_global_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
         global_matching_prepared_argmin,
         global_matching_prepared_argmin_plain, (q, k), upstream,
         got_idx == want_idx, TOL_GRAD_BF16)
-    ms = time_ms(lambda: global_matching_prepared_argmin(q, b))
-    plain_ms = time_ms(lambda: global_matching_prepared_argmin_plain(q, b))
+    # a launch is a fraction of a millisecond: kernel and library call are
+    # both timed over runs of back-to-back calls (the device's time), and
+    # single calls (the host's work per call included) are logged beside
     kt = k.T.contiguous()
-    library_ms = time_ms(lambda: torch.matmul(q, kt))
+    kernel_fn = lambda: global_matching_prepared_argmin(q, b)
+    library_fn = lambda: torch.matmul(q, kt)
+    ms, library_ms = stream_ms(kernel_fn), stream_ms(library_fn)
+    call_ms, library_call_ms = time_ms(kernel_fn), time_ms(library_fn)
+    plain_ms = time_ms(lambda: global_matching_prepared_argmin_plain(q, b))
     n_rows = int((b.src_idx >= 0).sum())
-    b_ms, b_by = bound(2.0 * nq * n_rows * c, H100_BF16_FLOPS,
-                       nbytes(q, b.neg2pixels, b.sqnorm, b.block_obj, got,
-                              got_idx))
+    tc_ms, b_by = bound(2.0 * nq * n_rows * c, H100_BF16_FLOPS,
+                        nbytes(q, b.neg2pixels, b.sqnorm, b.block_obj, got,
+                               got_idx))
+    epi_ms = argmin_epilogue_ms(nq, b)
+    b_ms = max(tc_ms, epi_ms)
+    b_what = ("the tensor cores' products" if tc_ms >= epi_ms
+              else "the argmin epilogue on the CUDA cores")
     log(f"[kernels] global_matching_argmin  Nq={nq} Nk={nk} (labelled "
         f"{n_rows}) C={c} O={o} bf16: {share:.3f} of live-object outputs "
         f"below 0.99, max|err|={err:.3g} (tol {TOL_GLOBAL}); winners equal "
         f"at all {clear_share:.4f} of live positions whose best beats the "
         f"second best by > {TOL_GLOBAL}; pixel-less object -1; routed "
         f"gradients kernel vs plain forward {grad_err:.3g} of the largest "
-        f"(tol {TOL_GRAD_BF16}: bf16 gradients); kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, cross-term GEMM only (torch.matmul bf16) "
-        f"{library_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}")
+        f"(tol {TOL_GRAD_BF16}: bf16 gradients); kernel {ms:.4f} ms over "
+        f"back-to-back calls ({call_ms:.4f} ms a single call with the "
+        f"wrapper's host work), plain {plain_ms:.3f} ms, cross-term GEMM only "
+        f"(torch.matmul bf16) {library_ms:.4f} ms ({library_call_ms:.4f} ms "
+        f"a single call), bound {b_ms:.4f} ms by {b_by} ({b_what}; "
+        f"tensor cores {tc_ms:.4f} ms, epilogue floor {epi_ms:.4f} ms at "
+        f"{ARGMIN_LANE_OPS} lane operations per candidate)")
+    argmin_split_ties(dev, hw, c, o)
     return dict(name="global_matching_argmin", route="cuda",
                 source="cvpr2020_manet_tpu_torch/csrc/global_matching.cu",
                 replaces="cvpr2020_manet_tpu/ops/matching_pallas.py:507",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms)
+
+
+def argmin_split_ties(dev, hw: tuple[int, int], c: int, o: int) -> None:
+    """Kernel 4 at the training shape on reference rows duplicated across
+    its key splits: keys in small multiples of 1/4 (every product and sum
+    exact), objects of unequal sizes so that some straddle a split
+    boundary, and at each boundary inside an object the rows of the
+    k-block before it copied over the k-block after it (both copies in one
+    object, in different splits). Queries sit next to the copied rows, so
+    each copy pair ties exactly; the winners must equal the plain
+    version's everywhere, and at every tie be the lower bucketed row."""
+    from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
+        argmin_splits, global_matching_prepared_argmin,
+        global_matching_prepared_argmin_plain, prepare_ref, split_ranges)
+    g = torch.Generator().manual_seed(8)
+    nk = nq = hw[0] * hw[1]
+    live = o - 1
+    # object j holds j + 1 shares of the rows, in a random order
+    shares = torch.arange(1, live + 1)
+    sizes = torch.diff(torch.cat([torch.zeros(1, dtype=torch.long),
+                                  shares.cumsum(0) * nk // shares.sum()]))
+    labels = torch.repeat_interleave(torch.arange(live), sizes)[
+        torch.randperm(nk, generator=g)]
+    onehot = torch.nn.functional.one_hot(labels, o).float().to(dev)
+    k = torch.randint(-2, 3, (nk, c), generator=g) * 0.25
+    b = prepare_ref(k.to(dev, torch.bfloat16), onehot)
+    splits = argmin_splits(nq, b, dev)
+    block_k = b.sqnorm.shape[1]
+    obj = b.block_obj.tolist()
+    live_kb = [j for j, x in enumerate(obj) if x < o]
+    src = b.src_idx.view(-1, block_k).cpu().long()
+    copied, straddle = [], 0
+    for lo, _ in split_ranges(len(live_kb), splits)[1:]:
+        before, after = live_kb[lo - 1], live_kb[lo]
+        if obj[before] != obj[after]:
+            continue
+        straddle += 1
+        keep = (src[before] >= 0) & (src[after] >= 0)
+        k[src[after][keep]] = k[src[before][keep]]
+        copied.append(src[before][keep])
+    require(straddle > 0, "argmin ties: no object straddles a split")
+    copied = torch.cat(copied)
+    q = k[copied[torch.randint(len(copied), (nq,), generator=g)]].clone()
+    q[:, :2] += 0.25
+    q, k = q.to(dev, torch.bfloat16), k.to(dev, torch.bfloat16)
+    b = prepare_ref(k, onehot)
+    got, got_idx = global_matching_prepared_argmin(q, b)
+    want, want_idx = global_matching_prepared_argmin_plain(q, b)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    require(err <= TOL_GLOBAL, f"argmin ties: distances differ by {err}")
+    require(torch.equal(got_idx, want_idx),
+            "argmin ties: winners differ from the plain version's")
+    require(bool((got_idx[:, live:] == -1).all()),
+            "argmin ties: a pixel-less object has a winner")
+    e = q.float() @ b.neg2pixels.float().T + b.sqnorm.reshape(-1)
+    row_obj = b.block_obj.long().repeat_interleave(block_k)
+    ties = 0
+    for ob in range(live):
+        eo = torch.where((row_obj == ob) & (b.src_idx >= 0), e, float("inf"))
+        at_min = eo == eo.min(dim=1, keepdim=True).values
+        tie = at_min.sum(dim=1) > 1
+        ties += int(tie.sum())
+        require(torch.equal(got_idx[tie, ob].long(),
+                            at_min.int().argmax(dim=1)[tie]),
+                "argmin ties: a tie went to a higher bucketed row")
+    require(ties >= nq, f"argmin ties: only {ties} ties")
+    log(f"[kernels] global_matching_argmin ties at the training shape: S = "
+        f"{splits}, {straddle} split boundaries inside an object, "
+        f"{len(copied)} rows copied across them; winners equal to the "
+        f"plain version's at all {nq * o} positions, {ties} exact ties all "
+        f"won by the lower bucketed row; max|err|={err:.3g}")
 
 
 def kernel_local_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
@@ -885,8 +1049,9 @@ def kernel_ring(dev, nq: int, page_rows: int, pages: int, c_real: int,
     one_ms, chunks = cross_term_ms(torch.matmul, q, k.T.contiguous(), 4,
                                    reps=1)
     library_ms = pages * one_ms
-    b_ms, b_by = bound(pages * 2.0 * nq * n_rows * c, H100_F32_FLOPS,
+    b_ms, b_by = bound(pages * 3 * 2.0 * nq * n_rows * c, H100_TF32_FLOPS,
                        bytes_in)
+    fma_ms = bound(pages * 2.0 * nq * n_rows * c, H100_F32_FLOPS, bytes_in)[0]
     log(f"[cp] ring_matching (kernel 6) Nq={nq} Nk={nk} ({pages} pages, "
         f"labelled {n_rows}) C={c} O={o} f32 on a {pages}-member ring on "
         f"one card: {share:.3f} of live-object outputs below 0.99, "
@@ -898,7 +1063,7 @@ def kernel_ring(dev, nq: int, page_rows: int, pages: int, c_real: int,
         f"first {first_ms:.1f}), plain ring {plain_ms:.1f} ms, torch.matmul "
         f"of the members' cross terms {library_ms:.1f} ms ({pages} x "
         f"{one_ms:.1f} over {chunks} query chunks), bound {b_ms:.1f} ms by "
-        f"{b_by}")
+        f"{b_by} (3 TF32 products per pair; f32 FMA bound {fma_ms:.1f} ms)")
     return dict(name="ring_matching", route="cuda",
                 source="cvpr2020_manet_tpu_torch/csrc/ring_matching.cu",
                 replaces="cvpr2020_manet_tpu/ops/ring_matching_pallas.py:55",
@@ -1176,6 +1341,55 @@ def train_phase(dev) -> dict[str, int]:
     return per_step
 
 
+def ptxas_reports(text: str) -> list[tuple[str, str]]:
+    """(kernel, "registers ..., spills ...") from a `ptxas -v` report."""
+    out, fn, frame = [], "?", ""
+    for line in text.splitlines():
+        line = line.strip()
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            for short in ("global_matching_tf32", "global_matching_argmin_wgmma",
+                          "global_matching_fma_argmin", "argmin_merge",
+                          "global_matching_mma_int8", "global_matching_mma_bf16",
+                          "local_matching_kernel"):
+                at = fn.find(short)
+                if at >= 0:     # a template's <true> instance is the argmin one
+                    argmin = fn.startswith("ILb1", at + len(short))
+                    fn = short + ("<argmin>" if argmin else "")
+                    break
+        elif "stack frame" in line:
+            frame = line
+        elif line.startswith("ptxas info") and "registers" in line:
+            out.append((fn, f"{line.split(':', 1)[1].strip()}; {frame}"))
+    return out
+
+
+def f32_route(build) -> None:
+    """Which tensor-core route kernel 1's f32 variant (and kernel 6) was
+    built on: its wgmma (HGMMA) and mma.sync (HMMA) instructions in the
+    SASS of the built library (cuobjdump), its registers and spills from
+    ptxas, and its dynamic shared memory."""
+    smem = build.kernel_function("global_matching",
+                                 "manet_global_matching_tf32_smem", [])()
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        log(f"[build] f32 template (matching_tf32.cuh): {smem} B dynamic "
+            f"shared memory; cuobjdump not found, route not read from SASS")
+        return
+    sass = subprocess.run([tool, "-sass", build._library_path(
+        "global_matching")], capture_output=True, text=True,
+        check=True).stdout
+    fns = [f for f in sass.split("Function : ")[1:]
+           if "global_matching_tf32" in f.splitlines()[0]]
+    require(len(fns) == 1, "the f32 template's SASS was not found")
+    wgmma, mma = fns[0].count("HGMMA"), fns[0].count("HMMA")
+    require(wgmma > 0, "the f32 template was not built on wgmma")
+    log(f"[build] f32 template (matching_tf32.cuh, kernels 1 f32 and 6): "
+        f"route wgmma, {wgmma} HGMMA and {mma} HMMA instructions in its "
+        f"SASS; {smem} B dynamic shared memory")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1202,9 +1416,9 @@ def main() -> int:
         f"({len(build.BUILD_LOGS)} compiled now by nvcc, the others found "
         f"built from the same sources)")
     for name, text in build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, report in ptxas_reports(text):
+            log(f"[build] {name}: {fn}: {report}")
+    f32_route(build)
 
     # [3] kernels at their paths' shapes, and a tiny round vs the CPU
     round_480p = "480p round: 15 frames against one"

@@ -10,6 +10,28 @@ namespace manet {
 // WRONG_LABEL_PADDING_DISTANCE); it never wins a min.
 constexpr float kBig = 1e8f;
 
+constexpr int O_MAX = 16;      // objects per accumulator row
+
+// Fold (v, i) with the lane `mask` away: the smaller value, and of equal
+// values the lower row (-1, no row yet, counts as the highest).
+__device__ __forceinline__ void argmin_xor(float& v, int& i, int mask) {
+  const float ov = __shfl_xor_sync(0xffffffffu, v, mask);
+  const int oi = __shfl_xor_sync(0xffffffffu, i, mask);
+  if (ov < v || (ov == v && static_cast<unsigned>(oi) < static_cast<unsigned>(i))) {
+    v = ov;
+    i = oi;
+  }
+}
+
+// Keep the candidate `c` of bucketed row `row` if it is below the running
+// minimum (the first of equal minima stays).
+__device__ __forceinline__ void keep_min(float& v, int& i, float c, int row) {
+  if (c < v) {
+    v = c;
+    i = row;
+  }
+}
+
 // FEELVOS normalization of a squared distance: 1 - 2 / (1 + exp(min(d, 30))).
 __device__ __forceinline__ float normalize_distance(float d) {
   return 1.f - 2.f / (1.f + expf(fminf(d, 30.f)));

@@ -31,12 +31,29 @@
 // keeps the first of equal minima (strict <), and the reduction across
 // threads takes the lower row of equal values. The argmin variants hold
 // the running (min, row) of the current object in registers, because an
-// object's blocks are consecutive: when its last block is done the row's
-// owner thread writes the result straight to `out` / `idx` (prefilled
-// with the empty-object answer). They need no (queries, O) accumulator in
-// shared memory, which would not fit beside the key tiles.
+// object's blocks are consecutive, and the row's owner thread writes it
+// when the object's last block is done (over the prefilled empty-object
+// answer); no (queries, O) accumulator in shared memory is needed.
 //
-// Two variants:
+// The bf16 argmin kernel (kernel 4, training) splits the key range and
+// runs on `wgmma`. At the training shape (Nq = Nk = 10,816) one block per
+// query tile would leave most of the card idle and walk 24 live k-blocks
+// one after another, so the wrapper launches a 2-D grid of query tiles x S
+// splits (`splits`, chosen from the SM count), each split owning a
+// contiguous run of the live k-blocks (live ordinals [s L / S, (s + 1) L /
+// S), L counted on the device). A split writes one partial (min, row) per
+// (query, object) into the scratch buffer, (1e8, -1) for an object it does
+// not touch, and `argmin_merge` folds the S partials in ascending split
+// order with a strict <, so that the lowest bucketed row wins ties across
+// splits as within one (the TPU kernel's `dmin < acc` over its k-blocks),
+// then adds |q|^2, clamps and normalizes. With S = 1 the kernel writes
+// `out` / `idx` itself. Bound on an H100: the tensor cores' products (989
+// TFLOP/s bf16), with the argmin epilogue (about 4-5 lane operations per
+// candidate: add, compare, two selects) on the CUDA cores close behind;
+// two resident blocks of two warpgroups per SM overlap one block's
+// epilogue with the other's products.
+//
+// Four variants:
 // - bf16 with C = 128 (the model's path): tensor cores through
 //   `mma.sync.m16n8k16` (bf16 in, f32 accumulate). A block of 4 warps owns
 //   128 queries; each warp keeps the A fragments of its 32 queries x 128
@@ -44,9 +61,13 @@
 //   for two 16-row tiles. 64-key tiles of -2k stream through shared memory
 //   with cp.async, double-buffered. `mma.sync` reaches a fraction of the
 //   `wgmma` peak; a warpgroup (wgmma + TMA) version is the next step.
-// - f32 (the tiny test config): plain FMA on the CUDA cores, 64 queries x
-//   64 keys per tile, 4 x 4 outputs per thread (matching_fma.cuh, shared
-//   with the ring step of ring_matching.cu).
+// - bf16 argmin (kernel 4): `wgmma.m64n64k16` with the queries' A
+//   fragments in registers, split key range, merge in key order (above).
+// - f32 (the f32 stream's memory, the tiny test config): 3xTF32 on the
+//   tensor cores through `wgmma` (matching_tf32.cuh, shared with the ring
+//   step of ring_matching.cu).
+// - f32 argmin (f32 test configurations only): FMA on the CUDA cores, 64
+//   queries x 64 keys per tile, 4 x 4 outputs per thread.
 //
 // The int8 kernel (entry `manet_global_matching_int8`) replaces the TPU
 // kernel `_matching_kernel_int8` (called by `global_matching_prepared_int8`,
@@ -73,17 +94,17 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "matching_fma.cuh"
+#include "matching_tf32.cuh"
 
 namespace {
 
 using manet::argmin_xor;
 using manet::keep_min;
 using manet::O_MAX;
-using manet::TILE_K;
 
 // ------------------------------------------------------------ tensor cores
 
+constexpr int TILE_K = 64;                 // keys per tile; divides block_k
 constexpr int MMA_C = 128;                 // channels (the padded embedding)
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_ROWS = 32;               // queries per warp (2 m16 tiles)
@@ -118,27 +139,24 @@ __device__ __forceinline__ int next_block(const int* __restrict__ block_obj,
   return kb;
 }
 
-template <bool ARGMIN>
 __global__ void __launch_bounds__(MMA_WARPS * 32, 3)
 global_matching_mma_bf16(const __nv_bfloat16* __restrict__ query,
                          const __nv_bfloat16* __restrict__ neg2,
                          const float* __restrict__ sqnorm,
                          const int* __restrict__ block_obj,
-                         float* __restrict__ out, int* __restrict__ idx,
-                         int64_t nq, int nkb, int block_k, int num_obj) {
+                         float* __restrict__ out, int64_t nq, int nkb,
+                         int block_k, int num_obj) {
   __shared__ __align__(16) __nv_bfloat16 ks[2][TILE_K * MMA_PITCH];
-  __shared__ float acc[ARGMIN ? 1 : MMA_TQ][O_MAX];
-  __shared__ float qn[ARGMIN ? 1 : MMA_TQ];
+  __shared__ float acc[MMA_TQ][O_MAX];
+  __shared__ float qn[MMA_TQ];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
   const int64_t q0 = static_cast<int64_t>(blockIdx.x) * MMA_TQ;
 
-  if constexpr (!ARGMIN) {
-    for (int i = tid; i < MMA_TQ * O_MAX; i += MMA_WARPS * 32)
-      (&acc[0][0])[i] = manet::kBig;
-  }
+  for (int i = tid; i < MMA_TQ * O_MAX; i += MMA_WARPS * 32)
+    (&acc[0][0])[i] = manet::kBig;
 
   // A fragments of this warp's 32 queries (rows g, g+8 of two m16 tiles)
   // and their partial |q|^2 over the channels this lane holds.
@@ -160,30 +178,6 @@ global_matching_mma_bf16(const __nv_bfloat16* __restrict__ query,
         const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&hi);
         const float2 lf = __bfloat1622float2(l2), hf = __bfloat1622float2(h2);
         qsq[m][half] += lf.x * lf.x + lf.y * lf.y + hf.x * hf.x + hf.y * hf.y;
-      }
-    }
-  }
-
-  // (argmin) the full |q|^2 of each row in every lane of its quad, and
-  // the empty-object answer prefilled by the quad's lane 0, which also
-  // writes the row's results later (same thread, program order)
-  int rarg[2][2] = {{-1, -1}, {-1, -1}};
-  if constexpr (ARGMIN) {
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float v = qsq[m][half];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        qsq[m][half] = v;
-        const int64_t row = q0 + warp * MMA_ROWS + m * 16 + g + half * 8;
-        if (t == 0 && row < nq) {
-          for (int o = 0; o < num_obj; ++o) {
-            out[row * num_obj + o] = manet::finish_distance(manet::kBig, v);
-            idx[row * num_obj + o] = -1;
-          }
-        }
       }
     }
   }
@@ -235,44 +229,13 @@ global_matching_mma_bf16(const __nv_bfloat16* __restrict__ query,
         const float2 s2 = *reinterpret_cast<const float2*>(sq + (ns + n) * 8 + 2 * t);
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
-          if constexpr (ARGMIN) {
-            // columns 2t, 2t+1 of subtile ns+n, in ascending row order
-            const int col = kb * block_k + kt + (ns + n) * 8 + 2 * t;
-            keep_min(rmin[m][0], rarg[m][0], d[n][m][0] + s2.x, col);
-            keep_min(rmin[m][0], rarg[m][0], d[n][m][1] + s2.y, col + 1);
-            keep_min(rmin[m][1], rarg[m][1], d[n][m][2] + s2.x, col);
-            keep_min(rmin[m][1], rarg[m][1], d[n][m][3] + s2.y, col + 1);
-          } else {
-            rmin[m][0] = fminf(rmin[m][0], fminf(d[n][m][0] + s2.x, d[n][m][1] + s2.y));
-            rmin[m][1] = fminf(rmin[m][1], fminf(d[n][m][2] + s2.x, d[n][m][3] + s2.y));
-          }
+          rmin[m][0] = fminf(rmin[m][0], fminf(d[n][m][0] + s2.x, d[n][m][1] + s2.y));
+          rmin[m][1] = fminf(rmin[m][1], fminf(d[n][m][2] + s2.x, d[n][m][3] + s2.y));
         }
       }
     }
 
-    if constexpr (ARGMIN) {
-      const int obj = block_obj[kb];
-      // the object's last block: its blocks are consecutive
-      if (nkb2 >= nkb || block_obj[nkb2] != obj) {
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            float v = rmin[m][half];
-            int i = rarg[m][half];
-            argmin_xor(v, i, 1);
-            argmin_xor(v, i, 2);
-            const int64_t row = q0 + warp * MMA_ROWS + m * 16 + g + half * 8;
-            if (t == 0 && row < nq) {
-              out[row * num_obj + obj] = manet::finish_distance(v, qsq[m][half]);
-              idx[row * num_obj + obj] = i;
-            }
-            rmin[m][half] = manet::kBig;
-            rarg[m][half] = -1;
-          }
-        }
-      }
-    } else if (nkb2 != kb) {   // the k-block ends: fold its minima into its object
+    if (nkb2 != kb) {   // the k-block ends: fold its minima into its object
       const int obj = block_obj[kb];
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
@@ -294,22 +257,406 @@ global_matching_mma_bf16(const __nv_bfloat16* __restrict__ query,
     kt = nkt;
     buf ^= 1;
   }
-  if constexpr (!ARGMIN) {   // (argmin: every object was written as it ended)
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < 2; ++m) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float v = qsq[m][half];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (t == 0) qn[warp * MMA_ROWS + m * 16 + g + half * 8] = v;
+    for (int half = 0; half < 2; ++half) {
+      float v = qsq[m][half];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (t == 0) qn[warp * MMA_ROWS + m * 16 + g + half * 8] = v;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < MMA_TQ * num_obj; i += MMA_WARPS * 32) {
+    const int row = i / num_obj, o = i - row * num_obj;
+    const int64_t gq = q0 + row;
+    if (gq < nq) out[gq * num_obj + o] = manet::finish_distance(acc[row][o], qn[row]);
+  }
+}
+
+
+// The k-blocks [lo, hi) of split s of S: the live blocks of ordinals
+// [s L / S, (s + 1) L / S), L the number of live blocks (slack blocks
+// inside the range are skipped by the walk).
+__device__ void split_range(const int* __restrict__ block_obj, int nkb,
+                            int num_obj, int s, int splits, int& lo, int& hi) {
+  int live = 0;
+  for (int kb = 0; kb < nkb; ++kb)
+    live += static_cast<unsigned>(block_obj[kb]) < static_cast<unsigned>(num_obj);
+  const int first = s * live / splits, last = (s + 1) * live / splits;
+  lo = hi = nkb;
+  for (int kb = 0, ord = 0; kb < nkb; ++kb) {
+    if (static_cast<unsigned>(block_obj[kb]) >= static_cast<unsigned>(num_obj)) continue;
+    if (ord == first) lo = kb;
+    if (ord == last) {
+      hi = kb;
+      break;
+    }
+    ++ord;
+  }
+}
+
+// ------------------------------------------ bf16 argmin on wgmma (kernel 4)
+
+constexpr int AW_WG = 2;                   // warpgroups per block, m64 each
+constexpr int AW_BM = 64 * AW_WG;          // queries per block
+constexpr int AW_THREADS = 128 * AW_WG;
+constexpr int AW_BN = 64;                  // keys per tile; divides block_k
+constexpr int AW_STAGES = 4;               // key tiles in flight
+constexpr int AW_ATOM = AW_BN * 128;       // 64 keys x 64 channels (128 B rows)
+// shared memory from a 1024-byte aligned base: each stage's two swizzle
+// atoms (128 channels), then each stage's |k|^2
+constexpr int AW_OFF_SQ = AW_STAGES * 2 * AW_ATOM;
+constexpr int AW_SMEM = AW_OFF_SQ + AW_STAGES * AW_BN * 4 + 1024;  // + alignment
+
+// d = A (64 x 16, registers) * B (64 x 16)^T (+ d if `accumulate`), bf16
+// in, f32 sums; B K-major in the 128-byte swizzle
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The argmin kernel's walk over its 64-key tiles: the live k-blocks of
+// [kb, kb_end) in order, slack blocks skipped.
+struct TileWalk {
+  const int* block_obj;
+  int kb_end, block_k, num_obj;
+  int kb, kt;
+
+  __device__ void skip_slack() { kb = next_block(block_obj, kb, kb_end, num_obj); }
+  __device__ bool done() const { return kb >= kb_end; }
+  __device__ void next() {
+    kt += AW_BN;
+    if (kt < block_k) return;
+    kt = 0;
+    ++kb;
+    skip_slack();
+  }
+};
+
+// Kernel 4. A block of two warpgroups owns 128 queries, held as wgmma A
+// fragments in registers (each warp 16 rows x 128 channels, the
+// mma.m16n8k16 layout), and walks its split's live k-blocks in 64-key
+// tiles: cp.async streams each tile of -2k (in the 128-byte swizzle that
+// the B descriptor reads) and its |k|^2 through a ring of 4 stages, which
+// both warpgroups read, 8 `wgmma.m64n64k16` per warpgroup form the tile's
+// cross terms, and the epilogue folds the candidates, in ascending row
+// order, into the running (min, row) of the object. With `part_v` set,
+// the block is split blockIdx.y of gridDim.y and writes its partial (min,
+// row) per (query, object) to part_v / part_i (gridDim.y, nq, num_obj),
+// (1e8, -1) for an object it does not touch, and split 0 writes |q|^2 to
+// `part_qn` (nq,); without, it writes `out` / `idx`. Two blocks share an
+// SM, so one block's epilogue overlaps the other's products; a key tile
+// feeds 128 queries, which halves the keys' traffic from L2 against 64.
+__global__ void __launch_bounds__(AW_THREADS, 2)
+global_matching_argmin_wgmma(const __nv_bfloat16* __restrict__ query,
+                             const __nv_bfloat16* __restrict__ neg2,
+                             const float* __restrict__ sqnorm,
+                             const int* __restrict__ block_obj,
+                             float* __restrict__ out, int* __restrict__ idx,
+                             float* __restrict__ part_v, int* __restrict__ part_i,
+                             float* __restrict__ part_qn, int64_t nq, int nkb,
+                             int block_k, int num_obj) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;   // warp w: rows 16 w .. 16 w + 15
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * AW_BM;
+  const int64_t rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
+  // A fragments of this warp's 16 queries, and their |q|^2
+  uint32_t a[MMA_KSTEPS][4];
+  float qsq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(query + rows[half] * MMA_C);
+#pragma unroll
+    for (int s = 0; s < MMA_KSTEPS; ++s) {
+      const uint32_t lo = rows[half] < nq ? src[s * 8 + t] : 0u;       // cols 2t, 2t+1
+      const uint32_t hi = rows[half] < nq ? src[s * 8 + 4 + t] : 0u;   // cols 2t+8, 2t+9
+      a[s][half] = lo;
+      a[s][2 + half] = hi;
+      const float2 lf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lo));
+      const float2 hf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+      qsq[half] += lf.x * lf.x + lf.y * lf.y + hf.x * hf.x + hf.y * hf.y;
+    }
+    qsq[half] += __shfl_xor_sync(0xffffffffu, qsq[half], 1);
+    qsq[half] += __shfl_xor_sync(0xffffffffu, qsq[half], 2);
+  }
+
+  // this block's k-blocks, and the empty-object answer (or partial)
+  // prefilled by the quad's lane 0, which also writes the row's results
+  // later (same thread, program order)
+  int kb_lo = 0, kb_hi = nkb;
+  if (part_v != nullptr) {
+    split_range(block_obj, nkb, num_obj, blockIdx.y, gridDim.y, kb_lo, kb_hi);
+    const int64_t off = static_cast<int64_t>(blockIdx.y) * nq * num_obj;
+    part_v += off;
+    part_i += off;
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int64_t row = rows[half];
+    if (t != 0 || row >= nq) continue;
+    if (part_v != nullptr) {
+      if (blockIdx.y == 0) part_qn[row] = qsq[half];
+      for (int o = 0; o < num_obj; ++o) {
+        part_v[row * num_obj + o] = manet::kBig;
+        part_i[row * num_obj + o] = -1;
+      }
+    } else {
+      for (int o = 0; o < num_obj; ++o) {
+        out[row * num_obj + o] = manet::finish_distance(manet::kBig, qsq[half]);
+        idx[row * num_obj + o] = -1;
       }
     }
-    __syncthreads();
-    for (int i = tid; i < MMA_TQ * num_obj; i += MMA_WARPS * 32) {
-      const int row = i / num_obj, o = i - row * num_obj;
-      const int64_t gq = q0 + row;
-      if (gq < nq) out[gq * num_obj + o] = manet::finish_distance(acc[row][o], qn[row]);
+  }
+
+  // stage tile `w` into `stage`: 64 rows x 16 chunks of 16 bytes, and its
+  // 64 |k|^2
+  auto load = [&](int stage, const TileWalk& w) {
+    const int64_t k0 = static_cast<int64_t>(w.kb) * block_k + w.kt;
+    uint8_t* dst = smem + stage * 2 * AW_ATOM;
+#pragma unroll
+    for (int i = 0; i < AW_BN * 16 / AW_THREADS; ++i) {
+      const int p = tid + i * AW_THREADS, r = p >> 4, j = p & 15;
+      cp_async16(dst + (j >> 3) * AW_ATOM + manet::swizzle128(r, j & 7),
+                 neg2 + (k0 + r) * MMA_C + j * 8);
+    }
+    if (tid < AW_BN / 4)
+      cp_async16(smem + AW_OFF_SQ + (stage * AW_BN + tid * 4) * 4, sqnorm + k0 + tid * 4);
+  };
+
+  TileWalk cur{block_obj, kb_hi, block_k, num_obj, kb_lo, 0};
+  cur.skip_slack();
+  TileWalk ahead = cur;
+  for (int i = 0; i < AW_STAGES - 1; ++i) {
+    if (!ahead.done()) {
+      load(i, ahead);
+      ahead.next();
+    }
+    cp_async_commit();
+  }
+  float d[32] = {};
+  float rmin[2] = {manet::kBig, manet::kBig};
+  int rarg[2] = {-1, -1};
+  for (int it = 0; !cur.done(); ++it) {
+    const int stage = it % AW_STAGES;
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(AW_STAGES - 2));   // this tile landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();   // and every thread is done with the stage refilled here
+    if (!ahead.done()) {
+      load((it + AW_STAGES - 1) % AW_STAGES, ahead);
+      ahead.next();
+    }
+    cp_async_commit();
+
+    const uint32_t b = base + stage * 2 * AW_ATOM;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < MMA_KSTEPS; ++s)   // 16 channels = 32 bytes a step
+      wgmma_bf16_rs(d, a[s], manet::sw128_desc(b + (s >> 2) * AW_ATOM + (s & 3) * 32), s > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+
+    // candidates cross + |k|^2 of columns 8i + 2t, 8i + 2t + 1, in
+    // ascending row order
+    const float* sq = reinterpret_cast<const float*>(smem + AW_OFF_SQ) + stage * AW_BN;
+    const int col = cur.kb * block_k + cur.kt + 2 * t;
+#pragma unroll
+    for (int i = 0; i < AW_BN / 8; ++i) {
+      const float2 s2 = *reinterpret_cast<const float2*>(sq + i * 8 + 2 * t);
+      keep_min(rmin[0], rarg[0], d[4 * i] + s2.x, col + i * 8);
+      keep_min(rmin[0], rarg[0], d[4 * i + 1] + s2.y, col + i * 8 + 1);
+      keep_min(rmin[1], rarg[1], d[4 * i + 2] + s2.x, col + i * 8);
+      keep_min(rmin[1], rarg[1], d[4 * i + 3] + s2.y, col + i * 8 + 1);
+    }
+
+    const int obj = block_obj[cur.kb];
+    cur.next();
+    // the object's last tile (in this split): its blocks are consecutive
+    if (!cur.done() && block_obj[cur.kb] == obj) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float v = rmin[half];
+      int i = rarg[half];
+      argmin_xor(v, i, 1);
+      argmin_xor(v, i, 2);
+      const int64_t row = rows[half];
+      if (t == 0 && row < nq) {
+        if (part_v != nullptr) {
+          part_v[row * num_obj + obj] = v;
+          part_i[row * num_obj + obj] = i;
+        } else {
+          out[row * num_obj + obj] = manet::finish_distance(v, qsq[half]);
+          idx[row * num_obj + obj] = i;
+        }
+      }
+      rmin[half] = manet::kBig;
+      rarg[half] = -1;
+    }
+  }
+}
+
+// Fold the S partials of each (query, object) of the split argmin kernel in
+// ascending split order (strict <: of equal minima the earlier split, whose
+// rows are lower, keeps its row), then |q|^2, clamp and normalize.
+__global__ void argmin_merge(const float* __restrict__ part_v,
+                             const int* __restrict__ part_i,
+                             const float* __restrict__ part_qn,
+                             float* __restrict__ out, int* __restrict__ idx,
+                             int64_t n, int num_obj, int splits) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float v = part_v[i];
+  int r = part_i[i];
+  for (int s = 1; s < splits; ++s) {
+    const float w = part_v[s * n + i];
+    if (w < v) {
+      v = w;
+      r = part_i[s * n + i];
+    }
+  }
+  out[i] = manet::finish_distance(v, part_qn[i / num_obj]);
+  idx[i] = r;
+}
+
+// ------------------------------------------- f32 argmin on the CUDA cores
+
+constexpr int FMA_TQ = 64;       // queries per block
+constexpr int FMA_TK = 64;       // keys per tile; divides block_k
+constexpr int FMA_CK = 32;       // channels per staged key chunk
+constexpr int FMA_C_MAX = 128;   // channels held for the query tile
+constexpr int FMA_PAD = 4;       // keeps float4 rows aligned, spreads banks
+constexpr int FMA_THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
+
+// The f32 argmin kernel: 64 queries x 64 keys per tile, the key chunks
+// staged through shared memory, the cross term one fmaf chain per pair.
+__global__ void __launch_bounds__(FMA_THREADS)
+global_matching_fma_argmin(const float* __restrict__ query,
+                           const float* __restrict__ neg2,
+                           const float* __restrict__ sqnorm,
+                           const int* __restrict__ block_obj,
+                           float* __restrict__ out, int* __restrict__ idx,
+                           int64_t nq, int c, int nkb, int block_k, int num_obj) {
+  __shared__ __align__(16) float qs[FMA_C_MAX][FMA_TQ + FMA_PAD];  // transposed
+  __shared__ __align__(16) float kc[FMA_CK][FMA_TK + FMA_PAD];     // transposed
+  __shared__ float qn[FMA_TQ];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;  // keys tx*4 .. tx*4+3 of a tile
+  const int ty = tid >> 4;  // queries ty*4 .. ty*4+3 of the block
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * FMA_TQ;
+
+  for (int i = tid; i < FMA_TQ * c; i += FMA_THREADS) {
+    const int row = i / c, col = i - row * c;
+    const int64_t gq = q0 + row;
+    qs[col][row] = gq < nq ? query[gq * c + col] : 0.f;
+  }
+  // |q|^2 first, and the empty-object answer prefilled by the thread
+  // (tx == 0) that writes the row's results later
+  __syncthreads();
+  if (tid < FMA_TQ) {
+    float s = 0.f;
+    for (int col = 0; col < c; ++col) s = fmaf(qs[col][tid], qs[col][tid], s);
+    qn[tid] = s;
+  }
+  __syncthreads();
+  if (tx == 0) {
+    for (int i = 0; i < 4; ++i) {
+      const int64_t gq = q0 + ty * 4 + i;
+      if (gq >= nq) continue;
+      for (int o = 0; o < num_obj; ++o) {
+        out[gq * num_obj + o] = manet::finish_distance(manet::kBig, qn[ty * 4 + i]);
+        idx[gq * num_obj + o] = -1;
+      }
+    }
+  }
+
+  // running minima and rows of this thread's queries, per object, whose
+  // blocks are consecutive
+  float bmin[4] = {manet::kBig, manet::kBig, manet::kBig, manet::kBig};
+  int barg[4] = {-1, -1, -1, -1};
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int obj = block_obj[kb];
+    if (obj < 0 || obj >= num_obj) continue;  // slack block (uniform branch)
+    for (int kt = 0; kt < block_k; kt += FMA_TK) {
+      const int64_t k0 = static_cast<int64_t>(kb) * block_k + kt;
+      float r[4][4] = {};
+      for (int c0 = 0; c0 < c; c0 += FMA_CK) {
+        __syncthreads();  // the previous chunk is consumed
+        for (int i = tid; i < FMA_TK * FMA_CK; i += FMA_THREADS) {
+          const int row = i / FMA_CK, col = i - row * FMA_CK;
+          kc[col][row] = neg2[(k0 + row) * c + c0 + col];
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int j = 0; j < FMA_CK; ++j) {
+          const float4 av = *reinterpret_cast<const float4*>(&qs[c0 + j][ty * 4]);
+          const float4 bv = *reinterpret_cast<const float4*>(&kc[j][tx * 4]);
+          const float a4[4] = {av.x, av.y, av.z, av.w};
+          const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) r[i][jj] = fmaf(a4[i], b4[jj], r[i][jj]);
+        }
+      }
+      float sq[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) sq[jj] = sqnorm[k0 + tx * 4 + jj];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          keep_min(bmin[i], barg[i], r[i][jj] + sq[jj],
+                   static_cast<int>(k0) + tx * 4 + jj);
+    }
+    if (kb + 1 < nkb && block_obj[kb + 1] == obj) continue;  // object goes on
+    // (min, row) over the 16 threads (lane bits 0..3) sharing these queries
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) argmin_xor(bmin[i], barg[i], off);
+    if (tx == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t gq = q0 + ty * 4 + i;
+        if (gq < nq) {
+          out[gq * num_obj + obj] = manet::finish_distance(bmin[i], qn[ty * 4 + i]);
+          idx[gq * num_obj + obj] = barg[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      bmin[i] = manet::kBig;
+      barg[i] = -1;
     }
   }
 }
@@ -493,57 +840,93 @@ global_matching_mma_int8(const int8_t* __restrict__ query,
   }
 }
 
-template <bool ARGMIN>
-int launch(const void* query, const void* neg2, const void* sqnorm,
-           const void* block_obj, void* out, void* idx, long long nq, int c,
-           int nkb, int block_k, int num_obj, int is_bf16, void* stream) {
-  if (!manet::fma_shape_ok(nq, c, nkb, block_k, num_obj) ||
-      (is_bf16 && c != MMA_C) || (ARGMIN && idx == nullptr) ||
-      (ARGMIN && static_cast<long long>(nkb) * block_k > 0x7fffffffLL))
+// The launch's arguments are valid: f32 needs c a multiple of 32 up to 128
+// (and, without argmin, block_k a multiple of 128), bf16 c = 128.
+bool shape_ok(long long nq, int c, int nkb, int block_k, int num_obj,
+              bool bf16, bool argmin) {
+  if (nq <= 0 || nkb < 0 || num_obj <= 0 || num_obj > O_MAX || block_k <= 0 ||
+      block_k % TILE_K != 0)
+    return false;
+  if (argmin && static_cast<long long>(nkb) * block_k > 0x7fffffffLL) return false;
+  if (bf16) return c == MMA_C;
+  return argmin ? c > 0 && c <= FMA_C_MAX && c % FMA_CK == 0
+                : manet::tf32_shape_ok(nq, c, nkb, block_k, num_obj);
+}
+
+}  // namespace
+
+// query (nq, c) and neg2 (nkb * block_k, c) in f32 (is_bf16 = 0; c a
+// multiple of 32 up to 128, block_k a multiple of 128) or in bf16 with
+// c = 128 (is_bf16 = 1); sqnorm (nkb, block_k) f32; block_obj (nkb,) int32;
+// out (nq, num_obj) f32. All contiguous on the current device, query and
+// neg2 16-byte aligned.
+extern "C" int manet_global_matching(const void* query, const void* neg2,
+                                     const void* sqnorm, const void* block_obj,
+                                     void* out, long long nq, int c, int nkb,
+                                     int block_k, int num_obj, int is_bf16,
+                                     void* stream) {
+  if (!shape_ok(nq, c, nkb, block_k, num_obj, is_bf16, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (!is_bf16)
+    return manet::launch_tf32(
+        static_cast<const float*>(query), static_cast<const float*>(neg2),
+        static_cast<const float*>(sqnorm), static_cast<const int*>(block_obj),
+        static_cast<float*>(out), nullptr, nullptr, nq, c, nkb, block_k,
+        num_obj, s);
+  const dim3 grid(static_cast<unsigned>((nq + MMA_TQ - 1) / MMA_TQ));
+  global_matching_mma_bf16<<<grid, MMA_WARPS * 32, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(query),
+      static_cast<const __nv_bfloat16*>(neg2),
+      static_cast<const float*>(sqnorm), static_cast<const int*>(block_obj),
+      static_cast<float*>(out), nq, nkb, block_k, num_obj);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As manet_global_matching, plus idx (nq, num_obj) int32: the bucketed
+// row of each minimum, -1 for an object without rows. bf16 splits the
+// key range `splits` ways (f32 takes 1); with splits > 1, `scratch` holds
+// splits * nq * num_obj f32 and as many int32 partials, then nq f32.
+extern "C" int manet_global_matching_argmin(
+    const void* query, const void* neg2, const void* sqnorm,
+    const void* block_obj, void* out, void* idx, void* scratch, long long nq,
+    int c, int nkb, int block_k, int num_obj, int is_bf16, int splits,
+    void* stream) {
+  if (!shape_ok(nq, c, nkb, block_k, num_obj, is_bf16, true) ||
+      idx == nullptr || splits < 1 || splits > 65535 ||
+      (splits > 1 && (!is_bf16 || scratch == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* bo = static_cast<const int*>(block_obj);
   const auto* sq = static_cast<const float*>(sqnorm);
   auto* o = static_cast<float*>(out);
   auto* ix = static_cast<int*>(idx);
-  if (is_bf16) {
-    const dim3 grid(static_cast<unsigned>((nq + MMA_TQ - 1) / MMA_TQ));
-    global_matching_mma_bf16<ARGMIN><<<grid, MMA_WARPS * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(query),
-        static_cast<const __nv_bfloat16*>(neg2), sq, bo, o, ix, nq, nkb,
-        block_k, num_obj);
-  } else {
-    const dim3 grid(static_cast<unsigned>((nq + manet::FMA_TQ - 1) / manet::FMA_TQ));
-    manet::global_matching_fma<ARGMIN><<<grid, manet::FMA_THREADS, 0, s>>>(
+  if (!is_bf16) {
+    const dim3 grid(static_cast<unsigned>((nq + FMA_TQ - 1) / FMA_TQ));
+    global_matching_fma_argmin<<<grid, FMA_THREADS, 0, s>>>(
         static_cast<const float*>(query), static_cast<const float*>(neg2), sq,
-        bo, o, ix, nullptr, nullptr, nq, c, nkb, block_k, num_obj);
+        bo, o, ix, nq, c, nkb, block_k, num_obj);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long n = nq * num_obj;
+  float* part_v = splits > 1 ? static_cast<float*>(scratch) : nullptr;
+  int* part_i = splits > 1 ? reinterpret_cast<int*>(part_v + splits * n) : nullptr;
+  float* part_qn = splits > 1 ? reinterpret_cast<float*>(part_i + splits * n) : nullptr;
+  cudaError_t err = cudaFuncSetAttribute(
+      global_matching_argmin_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, AW_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((nq + AW_BM - 1) / AW_BM),
+                  static_cast<unsigned>(splits));
+  global_matching_argmin_wgmma<<<grid, AW_THREADS, AW_SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(query),
+      static_cast<const __nv_bfloat16*>(neg2), sq, bo, o, ix, part_v, part_i,
+      part_qn, nq, nkb, block_k, num_obj);
+  if (splits > 1) {
+    const int threads = 256;
+    argmin_merge<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0, s>>>(
+        part_v, part_i, part_qn, o, ix, n, num_obj, splits);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// query (nq, c) and neg2 (nkb * block_k, c) in f32 (is_bf16 = 0) or in
-// bf16 with c = 128 (is_bf16 = 1); sqnorm (nkb, block_k) f32; block_obj
-// (nkb,) int32; out (nq, num_obj) f32. All contiguous on the current
-// device, query and neg2 16-byte aligned.
-extern "C" int manet_global_matching(const void* query, const void* neg2,
-                                     const void* sqnorm, const void* block_obj,
-                                     void* out, long long nq, int c, int nkb,
-                                     int block_k, int num_obj, int is_bf16,
-                                     void* stream) {
-  return launch<false>(query, neg2, sqnorm, block_obj, out, nullptr, nq, c,
-                       nkb, block_k, num_obj, is_bf16, stream);
-}
-
-// As manet_global_matching, plus idx (nq, num_obj) int32: the bucketed
-// row of each minimum, -1 for an object without rows.
-extern "C" int manet_global_matching_argmin(
-    const void* query, const void* neg2, const void* sqnorm,
-    const void* block_obj, void* out, void* idx, long long nq, int c, int nkb,
-    int block_k, int num_obj, int is_bf16, void* stream) {
-  return launch<true>(query, neg2, sqnorm, block_obj, out, idx, nq, c, nkb,
-                      block_k, num_obj, is_bf16, stream);
 }
 
 // The int8 kernel: query (nq, 128) and keys (nkb * block_k, 128) int8,
@@ -567,3 +950,6 @@ extern "C" int manet_global_matching_int8(
       block_k, num_obj);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dynamic shared memory of the f32 kernel (matching_tf32.cuh), in bytes.
+extern "C" int manet_global_matching_tf32_smem() { return manet::TF_SMEM; }

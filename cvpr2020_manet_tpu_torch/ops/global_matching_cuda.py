@@ -18,7 +18,11 @@ plain version below for a CPU query. There is no fallback between them.
 `global_matching_prepared_argmin` does the same with the kernel's argmin
 variant (which replaces `matching_pallas.py::_matching_kernel_argmin`):
 it also returns each minimum's row in the bucketed layout, for the
-training path's argmin-routed backward (`ops/trainable.py`).
+training path's argmin-routed backward (`ops/trainable.py`). On bf16 it
+splits the key range into `argmin_splits` runs of k-blocks, one block of
+the grid per (query tile, split), so that a training crop's matching
+fills the card; the splits' partial (min, row) merge in key order, so
+the lowest bucketed row still wins ties.
 
 `global_matching_prepared_int8` is the opt-in int8 serving mode (it
 replaces `matching_pallas.py::_matching_kernel_int8`): the reference is
@@ -33,6 +37,7 @@ exact f32 distance between the dequantized vectors:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -258,18 +263,58 @@ def _checked_query(query: torch.Tensor, bucketed: BucketedRef) -> torch.Tensor:
         if t.device != query.device or not t.is_contiguous():
             raise ValueError("bucketed reference must be contiguous on the "
                              "query's device")
-    q = F.pad(query, (0, c_pad - c)).contiguous()
+    q = (query if c == c_pad else F.pad(query, (0, c_pad - c))).contiguous()
     for name, t in (("query", q), ("neg2pixels", neg2)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     return q
 
 
-# query, neg2, sqnorm, block_obj, out[, idx]; nq; c, nkb, block_k, o,
-# is_bf16; stream
-_ARGTYPES = {argmin: [ctypes.c_void_p] * (6 if argmin else 5)
-             + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-             for argmin in (False, True)}
+# query, neg2, sqnorm, block_obj, out; nq; c, nkb, block_k, o, is_bf16;
+# stream. The argmin entry adds idx and scratch after out, and splits
+# after is_bf16.
+_ARGTYPES = {
+    False: [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    True: [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+    + [ctypes.c_void_p]}
+
+# Resident blocks of the bf16 argmin kernel per SM (its launch bound).
+ARGMIN_BLOCKS_PER_SM = 2
+ARGMIN_QUERY_TILE = 128          # queries per block of the bf16 argmin kernel
+
+
+def plan_splits(query_tiles: int, live_blocks: int, sms: int) -> int:
+    """Key splits S of the bf16 argmin kernel: as many as keep query_tiles
+    x S blocks within one wave of ARGMIN_BLOCKS_PER_SM resident blocks per
+    SM, at least 1 and at most one live k-block per split."""
+    fill = ARGMIN_BLOCKS_PER_SM * sms // max(query_tiles, 1)
+    return max(1, min(live_blocks, fill))
+
+
+def split_ranges(live_blocks: int, splits: int) -> list[tuple[int, int]]:
+    """The live k-block ordinals [lo, hi) of each split, as the kernel
+    cuts them (`split_range` in csrc/global_matching.cu)."""
+    return [(s * live_blocks // splits, (s + 1) * live_blocks // splits)
+            for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def argmin_splits(nq: int, bucketed: BucketedRef, device) -> int:
+    """The splits the argmin wrapper launches on `device` for Nq bf16
+    queries. The live k-blocks are counted on the device; the host plans
+    with their upper bound, the number of k-blocks, so that a launch
+    needs no device-to-host read (a split left without blocks writes the
+    empty-object partials)."""
+    if bucketed.neg2pixels.dtype != torch.bfloat16:
+        return 1
+    tiles = -(-nq // ARGMIN_QUERY_TILE)
+    return plan_splits(tiles, bucketed.block_obj.shape[0],
+                       _sm_count(torch.device(device).index or 0))
 
 
 def _launch(query: torch.Tensor, bucketed: BucketedRef, argmin: bool):
@@ -286,12 +331,19 @@ def _launch(query: torch.Tensor, bucketed: BucketedRef, argmin: bool):
         return out, idx
     name = "global_matching_argmin" if argmin else "global_matching"
     fn = build.kernel_function(name, f"manet_{name}", _ARGTYPES[argmin])
+    args = [q.data_ptr(), bucketed.neg2pixels.data_ptr(),
+            bucketed.sqnorm.data_ptr(), bucketed.block_obj.data_ptr(),
+            out.data_ptr()]
+    shape = [nq, q.shape[1], nkb, block_k, o, int(q.dtype == torch.bfloat16)]
+    if argmin:
+        splits = argmin_splits(nq, bucketed, q.device)
+        # partial minima and rows (splits, Nq, O), then |q|^2 (Nq,)
+        scratch = (torch.empty(splits * nq * o * 2 + nq, dtype=torch.int32,
+                               device=q.device) if splits > 1 else None)
+        args += [idx.data_ptr(), None if scratch is None else scratch.data_ptr()]
+        shape.append(splits)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), bucketed.neg2pixels.data_ptr(),
-                 bucketed.sqnorm.data_ptr(), bucketed.block_obj.data_ptr(),
-                 out.data_ptr(), *([idx.data_ptr()] if argmin else []),
-                 nq, q.shape[1], nkb, block_k, o,
-                 int(q.dtype == torch.bfloat16),
+        err = fn(*args, *shape,
                  torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(name, err)
     return out, idx

@@ -64,8 +64,9 @@ def ring_matching_step_plain(query: torch.Tensor, shard: RingShard,
 def _check(query: torch.Tensor, shard: RingShard, acc: torch.Tensor,
            out: torch.Tensor) -> None:
     """What the kernel takes: f32 query and keys of the same width (a
-    multiple of 32, at most 128), f32 norms and accumulators, int32 block
-    objects, all contiguous on one CUDA device."""
+    multiple of 32, at most 128), 16-byte aligned, blocks of a multiple of
+    128 rows, f32 norms and accumulators, int32 block objects, all
+    contiguous on one CUDA device."""
     if query.device.type != "cuda":
         raise ValueError(f"unsupported device {query.device}")
     neg2, sqnorm, block_obj = shard
@@ -82,10 +83,16 @@ def _check(query: torch.Tensor, shard: RingShard, acc: torch.Tensor,
     if c > 128 or c % 32:
         raise ValueError(f"the kernel takes up to 128 channels in steps of "
                          f"32, got {c}")
+    if block_k % 128:
+        raise ValueError(f"the kernel takes blocks of a multiple of 128 "
+                         f"rows, got {block_k}")
     for t in (*f32, block_obj):
         if t.device != query.device or not t.is_contiguous():
             raise ValueError("query, shard, acc and out must be contiguous "
                              "on one device")
+    for name, t in (("query", query), ("neg2pixels", neg2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 # query, neg2, sqnorm, block_obj, acc, out; nq; c, nkb, block_k, o, first,

@@ -8,7 +8,11 @@ machine with one (and no JAX) run them without the repo's conftest:
 Both sides compute the same products exactly in f32 (bf16 inputs are
 widened) and accumulate in f32 in another order, so they agree to 1e-5 on
 the normalized distances at these input scales. TF32 is off for the plain
-matmuls.
+matmuls. Kernel 1's f32 variant runs 3xTF32 on the tensor cores: each
+operand is split into two TF32 halves, the three products that matter
+are exact, the dropped lo x lo product is below 2^-22 of a product, and
+the large products are summed per 32 channels before an f32 add, so it
+keeps within 1e-5 as well.
 
 The int8 kernel (kernel 3) and its plain version form the same integer
 cross terms exactly (in int32, and in f32 below 2^24) and round the same
@@ -18,12 +22,15 @@ normalization: 1e-5.
 The ring kernel (kernel 6), driven by the ring rotation on members that
 share one card, agrees with the same ring on its plain version to 1e-5
 (another f32 summation order), and is bit-identical to kernel 1's f32
-variant over all rows: both take each pair's cross term as one fmaf chain
-over the channels in order, and a min is exact.
+variant over all rows: both run the same 3xTF32 arithmetic on each pair,
+whatever tile holds its key, and a min is exact.
 
 The argmin kernels' winners must equal the plain versions' wherever the
 best candidate beats the second best by more than the distance tolerance
-(closer pairs may swap under another summation order). The trainable
+(closer pairs may swap under another summation order). On inputs whose
+every product and sum is exact (small multiples of 1/4) they must equal
+everywhere, ties included: the lowest bucketed row wins, across the key
+splits of kernel 4 as within one. The trainable
 Functions' gradients are compared with an upstream gradient that is zero
 where the two forwards chose different winners; elsewhere they differ only
 in the order `index_add_` sums on the card, so they agree to 1e-5 in f32
@@ -36,10 +43,11 @@ import torch
 
 from cvpr2020_manet_tpu_torch.kernels import build
 from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
-    global_matching_int8_quantized, global_matching_prepared,
+    argmin_splits, global_matching_int8_quantized, global_matching_prepared,
     global_matching_prepared_argmin, global_matching_prepared_argmin_plain,
     global_matching_prepared_int8, global_matching_prepared_int8_plain,
-    global_matching_prepared_plain, prepare_ref, prepare_ref_int8)
+    global_matching_prepared_plain, prepare_ref, prepare_ref_int8,
+    split_ranges)
 from cvpr2020_manet_tpu_torch.ops.local_matching_cuda import (
     local_matching_prepared, local_matching_prepared_argmin,
     local_matching_prepared_argmin_plain, local_matching_prepared_plain,
@@ -74,6 +82,7 @@ def cuda():
     (257, 1025, 128, 9, torch.bfloat16, False),  # tensor cores, ragged
     (50, 200, 16, 2, torch.bfloat16, False),     # fewer queries than a block
     (64, 600, 128, 4, torch.bfloat16, True),     # an object with no pixels
+    (4096, 8192, 128, 4, torch.float32, False),  # many pipeline stages
 ])
 def test_global_kernel_matches_plain(cuda, nq, nk, c, o, dtype, empty):
     rng = np.random.default_rng(0)
@@ -225,6 +234,104 @@ def test_global_argmin_kernel_matches_plain(cuda, nq, nk, c, o, dtype, empty):
     cols = torch.arange(o, device=cuda).expand(nq, o)
     assert torch.equal(obj[live], cols[live])
     assert (b.src_idx[got_idx[live].long()] >= 0).all()
+
+
+def _exact_inputs(rng, nq, nk, c, o, cuda, dup_rows=64):
+    """bf16 keys and queries in small multiples of 1/4, so that every
+    product and sum is exact and the kernel and the plain version see the
+    same candidates, ties included. Objects of unequal sizes (object j
+    draws j + 1 shares of the rows), so that their k-blocks do not line up
+    with the key splits; object o - 1 has no pixels. In each
+    live object, the first `dup_rows` rows of its first k-block are copied
+    over rows of its last one, and half the queries are those rows: exact
+    ties across k-blocks and key splits."""
+    k = rng.integers(-2, 3, size=(nk, c)) * 0.25
+    shares = np.arange(1, o)
+    sizes = np.diff(np.concatenate([[0], shares.cumsum() * nk // shares.sum()]))
+    labels = rng.permutation(np.repeat(np.arange(o - 1), sizes))
+    onehot = torch.tensor(np.eye(o)[labels], dtype=torch.float32, device=cuda)
+    b = prepare_ref(torch.tensor(k, dtype=torch.bfloat16, device=cuda), onehot)
+    block_k = b.sqnorm.shape[1]
+    src = b.src_idx.cpu().numpy().reshape(-1, block_k)
+    obj = b.block_obj.cpu().numpy()
+    dups = []
+    for ob in range(o - 1):
+        blocks = np.nonzero(obj == ob)[0]
+        first, last = src[blocks[0], :dup_rows], src[blocks[-1], :dup_rows]
+        keep = (first >= 0) & (last >= 0)
+        k[last[keep]] = k[first[keep]]
+        dups.append(first[keep])
+    dups = np.concatenate(dups)
+    q = rng.integers(-2, 3, size=(nq, c)) * 0.25
+    half = nq // 2
+    q[:half] = k[dups[rng.integers(0, len(dups), size=half)]]
+    q[:half, :4] += 0.25                # near, but not on, the copied rows
+    return (torch.tensor(q, dtype=torch.bfloat16, device=cuda),
+            torch.tensor(k, dtype=torch.bfloat16, device=cuda), onehot)
+
+
+def _live_runs(block_obj: torch.Tensor, o: int):
+    """Each live object's run of live k-block ordinals [first, last]."""
+    live = [x for x in block_obj.tolist() if x < o]
+    return {ob: (live.index(ob), len(live) - 1 - live[::-1].index(ob))
+            for ob in set(live)}, len(live)
+
+
+@pytest.mark.parametrize("nq,nk,o", [
+    (2704, 10816, 4),          # 23 live blocks over 12 splits
+    (10816, 10816, 9),         # the training shape
+])
+def test_global_argmin_split_ties(cuda, nq, nk, o):
+    """Kernel 4 with its key range split: exact inputs with ties inside and
+    across k-blocks and splits, objects whose blocks straddle two splits,
+    and a pixel-less object. Winners equal the plain version's everywhere
+    and distances agree to 1e-5 (only the normalization's exp differs)."""
+    rng = np.random.default_rng(9)
+    q, k, onehot = _exact_inputs(rng, nq, nk, 128, o, cuda)
+    b = prepare_ref(k, onehot)
+    splits = argmin_splits(nq, b, cuda)
+    runs, n_live = _live_runs(b.block_obj, o)
+    cuts = {lo for lo, _ in split_ranges(n_live, splits)} - {0}
+    assert splits > 1
+    assert any(first < cut <= last for first, last in runs.values()
+               for cut in cuts)                       # an object straddles
+    got, got_idx = global_matching_prepared_argmin(q, b)
+    want, want_idx = global_matching_prepared_argmin_plain(q, b)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got_idx, want_idx)
+    assert (got_idx[:, o - 1] == -1).all() and (got[:, o - 1] == 1.0).all()
+    # the copied rows tie: the lower bucketed row (the first block) wins
+    e = q.float() @ b.neg2pixels.float().T + b.sqnorm.reshape(-1)
+    row_obj = b.block_obj.long().repeat_interleave(b.sqnorm.shape[1])
+    ties = 0
+    for ob in range(o - 1):
+        eo = torch.where((row_obj == ob) & (b.src_idx >= 0), e, float("inf"))
+        best = eo.min(dim=1, keepdim=True).values
+        n_best = (eo == best).sum(dim=1)
+        first = (eo == best).int().argmax(dim=1)
+        tie = n_best > 1
+        ties += int(tie.sum())
+        assert torch.equal(got_idx[tie, ob].long(), first[tie])
+    assert ties > nq // 4
+
+
+def test_global_argmin_unsplit(cuda):
+    """With more query tiles than three per SM the planner takes S = 1 and
+    the kernel writes its results without partials or merge."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nq = 3 * sms * 128 + 1
+    rng = np.random.default_rng(10)
+    q, k, onehot = _exact_inputs(rng, nq, 2000, 128, 4, cuda)
+    b = prepare_ref(k, onehot)
+    assert argmin_splits(nq, b, cuda) == 1
+    before = build.LAUNCHES["global_matching_argmin"]
+    got, got_idx = global_matching_prepared_argmin(q, b)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["global_matching_argmin"] == before + 1
+    want, want_idx = global_matching_prepared_argmin_plain(q, b)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got_idx, want_idx)
+    assert (got_idx[:, 3] == -1).all()
 
 
 @pytest.mark.parametrize("h,w,c,o,window", [
@@ -439,3 +546,8 @@ def test_ring_step_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):                # not contiguous
         ring_matching_step(q.t().contiguous().t(), shard, acc, out,
                            first=True, last=True)
+    buf = torch.empty(q.numel() + 1, device=cuda)   # 4 bytes past aligned
+    shifted = buf[1:].view_as(q)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        ring_matching_step(shifted, shard, acc, out, first=True, last=True)
