@@ -9,21 +9,24 @@ imports nothing of JAX. Phases (any failure exits non-zero):
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — nvcc builds every kernel from `cvpr2020_manet_tpu_torch/csrc`;
              each kernel's registers, shared memory and spills (ptxas),
-             and the tensor-core route of the f32 kernel (its wgmma
-             instructions, read from the built library's SASS);
+             and the tensor-core route of each tensor-core kernel, read
+             from the built libraries' SASS: wgmma (HGMMA) in the f32
+             template, in kernel 1 bf16 and in kernel 4, mma.sync (HMMA)
+             in kernel 2;
 3. kernels — each kernel against its plain PyTorch version at the shapes
              and dtypes of the path that runs it (max abs error vs a stated
              tolerance, median ms over CUDA events, the plain version's ms,
              the bound, and a library call's ms where one exists): the
              serving kernels at 480p, the int8 kernel at the 480p round
              and at one 1080p memory page, kernel 1's f32 variant (3xTF32)
-             at that page (the f32 stream's shape), the argmin kernels at
+             at that page (the f32 stream's shape), kernel 2 at the 1080p
+             stream's 136 x 240 beside its 480p row, the argmin kernels at
              the training shapes, with their winners and the gradients of
              the trainable Functions, kernel 4 with its key splits and
-             with exact ties across them (kernel 4 and its library call,
-             a fraction of a millisecond each, timed over runs of
-             back-to-back calls); then one tiny round on the card against
-             the same round on the CPU;
+             with exact ties across them (kernels 2 and 4 and kernel 4's
+             library call, a fraction of a millisecond each, timed over
+             runs of back-to-back calls); then one tiny round on the card
+             against the same round on the CPU;
 4. main    — the flagship ModelConfig() (ResNet-101, bf16, random weights
              from a seed) through `Evaluator.run_session` on a synthetic
              480p sequence of 16 frames, 2 objects, 3 rounds; the launch
@@ -71,6 +74,7 @@ imports nothing of JAX. Phases (any failure exits non-zero):
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -383,8 +387,12 @@ def kernel_global_int8(dev, nq: int, nk: int, c_real: int, c: int, o: int,
 
 
 def kernel_local(dev, hw: tuple[int, int], c_real: int, c: int, o: int,
-                 window: int):
-    """Kernel 2 at the main path's shape: one half-resolution frame, f32."""
+                 window: int, what: str):
+    """Kernel 2 at one of its paths' shapes: one half-resolution frame,
+    f32. The bound is 3 TF32 products per in-window pair on the tensor
+    cores; the bound of the pairs the kernel computes (each query row's
+    16-query tiles against its n8 key tiles) and the f32 FMA bound are
+    logged beside it."""
     from cvpr2020_manet_tpu_torch.ops.local_matching_cuda import (
         local_matching_prepared, local_matching_prepared_plain, prepare_local)
     g = torch.Generator().manual_seed(2)
@@ -397,22 +405,45 @@ def kernel_local(dev, hw: tuple[int, int], c_real: int, c: int, o: int,
     got = local_matching_prepared(*inputs, window)
     want = local_matching_prepared_plain(*inputs, window)
     torch.cuda.synchronize()
-    err, share = check_outputs("local matching", got, want, live, TOL_LOCAL)
-    ms = time_ms(lambda: local_matching_prepared(*inputs, window))
-    plain_ms = time_ms(lambda: local_matching_prepared_plain(*inputs, window))
-    b_ms, b_by = bound(2.0 * window_pairs(h, w, window) * c, H100_F32_FLOPS,
-                       nbytes(*inputs, got))
-    log(f"[kernels] local_matching   {h}x{w} C={c} O={o} window={window} "
-        f"f32: {share:.3f} of live-object outputs below 0.99 (min "
-        f"{MIN_UNSATURATED}), max|err|={err:.3g} (tol {TOL_LOCAL}: f32 "
-        f"accumulation in another order); kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, no single library call, bound {b_ms:.4f} ms by "
-        f"{b_by}")
+    err, share = check_outputs(f"local matching ({what})", got, want, live,
+                               TOL_LOCAL)
+    # a launch is a fraction of a millisecond: timed over back-to-back
+    # calls (the device's time), a single call logged beside
+    kernel_fn = lambda: local_matching_prepared(*inputs, window)
+    ms, call_ms = stream_ms(kernel_fn), time_ms(kernel_fn)
+    plain_ms = time_ms(lambda: local_matching_prepared_plain(*inputs, window),
+                       reps=3, warmup=1)
+    io = nbytes(*inputs, got)
+    pairs = 2.0 * window_pairs(h, w, window) * c
+    b_ms, b_by = bound(3 * pairs, H100_TF32_FLOPS, io)
+    computed = 2.0 * computed_local_pairs(h, w, window) * c
+    computed_ms = bound(3 * computed, H100_TF32_FLOPS, io)[0]
+    fma_ms = bound(pairs, H100_F32_FLOPS, io)[0]
+    log(f"[kernels] local_matching ({what}) {h}x{w} C={c} O={o} "
+        f"window={window} f32: {share:.3f} of live-object outputs below 0.99 "
+        f"(min {MIN_UNSATURATED}), max|err|={err:.3g} (tol {TOL_LOCAL}: "
+        f"3xTF32, f32 accumulation in another order); kernel {ms:.4f} ms "
+        f"over back-to-back calls ({call_ms:.4f} ms a single call), plain "
+        f"{plain_ms:.3f} ms, no single library call, bound "
+        f"{b_ms:.4f} ms by {b_by} (3 TF32 products per in-window pair; "
+        f"the {computed / pairs:.2f}x pairs the kernel computes "
+        f"{computed_ms:.4f} ms; f32 FMA {fma_ms:.4f} ms)")
     return dict(name="local_matching", route="cuda",
                 source="cvpr2020_manet_tpu_torch/csrc/local_matching.cu",
                 replaces="cvpr2020_manet_tpu/ops/local_matching_pallas.py:42",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+def computed_local_pairs(h: int, w: int, window: int) -> int:
+    """(query, key) pairs kernel 2 multiplies: each query row's 16-query
+    tiles against the n8 key tiles (3 a warp) of each key row within the
+    window."""
+    tiles = -(-(16 + 2 * window) // 8)
+    keys = -(-tiles // 3) * 24
+    rows = sum(min(h - 1, y + window) - max(0, y - window) + 1
+               for y in range(h))
+    return rows * -(-w // 16) * 16 * keys
 
 
 def window_pairs(h: int, w: int, window: int) -> int:
@@ -1349,14 +1380,17 @@ def ptxas_reports(text: str) -> list[tuple[str, str]]:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             fn = m.group(1)
-            for short in ("global_matching_tf32", "global_matching_argmin_wgmma",
+            for short in ("global_matching_tf32", "global_matching_wgmma",
                           "global_matching_fma_argmin", "argmin_merge",
-                          "global_matching_mma_int8", "global_matching_mma_bf16",
-                          "local_matching_kernel"):
+                          "global_matching_mma_int8", "local_matching_tf32",
+                          "local_matching_argmin_warp"):
                 at = fn.find(short)
-                if at >= 0:     # a template's <true> instance is the argmin one
-                    argmin = fn.startswith("ILb1", at + len(short))
-                    fn = short + ("<argmin>" if argmin else "")
+                if at >= 0:     # a template's instance: <argmin> / <min>, <OB>
+                    m = re.match(r"IL(b|i)(\d+)E", fn[at + len(short):])
+                    arg = "" if m is None else (
+                        ("<argmin>" if m.group(2) == "1" else "<min>")
+                        if m.group(1) == "b" else f"<{m.group(2)}>")
+                    fn = short + arg
                     break
         elif "stack frame" in line:
             frame = line
@@ -1365,29 +1399,46 @@ def ptxas_reports(text: str) -> list[tuple[str, str]]:
     return out
 
 
-def f32_route(build) -> None:
-    """Which tensor-core route kernel 1's f32 variant (and kernel 6) was
-    built on: its wgmma (HGMMA) and mma.sync (HMMA) instructions in the
-    SASS of the built library (cuobjdump), its registers and spills from
-    ptxas, and its dynamic shared memory."""
+# kernel functions (a substring of the SASS function name) and the
+# tensor-core instruction each must be built on
+ROUTES = (("global_matching_tf32", "HGMMA",
+           "the f32 template (matching_tf32.cuh, kernels 1 f32 and 6)"),
+          ("global_matching_wgmmaILb0", "HGMMA", "kernel 1 bf16 (wgmma, min)"),
+          ("global_matching_wgmmaILb1", "HGMMA", "kernel 4 (wgmma, argmin)"),
+          ("local_matching_tf32", "HMMA", "kernel 2 (3xTF32 mma.sync)"))
+
+
+def sass_routes(build) -> None:
+    """Which tensor-core route each tensor-core kernel was built on: its
+    wgmma (HGMMA) and mma.sync (HMMA) instructions in the SASS of the
+    built libraries (cuobjdump), and the dynamic shared memory of the f32
+    template and of kernel 2 at the main path's shape."""
     smem = build.kernel_function("global_matching",
                                  "manet_global_matching_tf32_smem", [])()
+    local_smem = build.kernel_function(
+        "local_matching", "manet_local_matching_smem", [ctypes.c_int] * 3)(
+            128, 15, 4)
+    log(f"[build] dynamic shared memory: f32 template {smem} B, kernel 2 "
+        f"{local_smem} B a block (C = 128, w = 15, O = 4)")
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
-        log(f"[build] f32 template (matching_tf32.cuh): {smem} B dynamic "
-            f"shared memory; cuobjdump not found, route not read from SASS")
+        log("[build] cuobjdump not found, routes not read from SASS")
         return
-    sass = subprocess.run([tool, "-sass", build._library_path(
-        "global_matching")], capture_output=True, text=True,
-        check=True).stdout
-    fns = [f for f in sass.split("Function : ")[1:]
-           if "global_matching_tf32" in f.splitlines()[0]]
-    require(len(fns) == 1, "the f32 template's SASS was not found")
-    wgmma, mma = fns[0].count("HGMMA"), fns[0].count("HMMA")
-    require(wgmma > 0, "the f32 template was not built on wgmma")
-    log(f"[build] f32 template (matching_tf32.cuh, kernels 1 f32 and 6): "
-        f"route wgmma, {wgmma} HGMMA and {mma} HMMA instructions in its "
-        f"SASS; {smem} B dynamic shared memory")
+    sass = {}
+    for lib in ("global_matching", "local_matching"):
+        out = subprocess.run([tool, "-sass", build._library_path(lib)],
+                             capture_output=True, text=True,
+                             check=True).stdout
+        for f in out.split("Function : ")[1:]:
+            sass[f.splitlines()[0].strip()] = f
+    for key, instr, what in ROUTES:
+        fns = {n: f for n, f in sass.items() if key in n}
+        require(len(fns) > 0, f"{what}: not found in the SASS")
+        for name, f in fns.items():
+            wgmma, mma = f.count("HGMMA"), f.count("HMMA")
+            require(f.count(instr) > 0, f"{what} ({name}) has no {instr}")
+            log(f"[build] {what}: {wgmma} HGMMA and {mma} HMMA instructions "
+                f"in the SASS of {name[:60]}")
 
 
 def main() -> int:
@@ -1418,27 +1469,29 @@ def main() -> int:
     for name, text in build.BUILD_LOGS.items():
         for fn, report in ptxas_reports(text):
             log(f"[build] {name}: {fn}: {report}")
-    f32_route(build)
+    sass_routes(build)
 
     # [3] kernels at their paths' shapes, and a tiny round vs the CPU
     round_480p = "480p round: 15 frames against one"
     page_1080p = "one 1080p frame against one memory page"
     kernels = [kernel_global(dev, 15 * 120 * 216, 120 * 216, 100, 128, 4,
                              torch.bfloat16, round_480p),
-               kernel_local(dev, (60, 108), 100, 128, 4, 15),
+               kernel_local(dev, (60, 108), 100, 128, 4, 15, "480p round"),
                kernel_global_int8(dev, 15 * 120 * 216, 120 * 216, 100, 128, 4,
                                   round_480p),
                kernel_global_argmin(dev, (104, 104), 100, 128, 9),
                kernel_local_argmin(dev, (52, 52), 100, 128, 9, 15)]
-    # the stream's two global-matching shapes: int8 memory, and f32 memory
-    # on kernel 1's f32 FMA variant
+    # the 1080p stream's shapes: global matching with int8 memory and with
+    # f32 memory (kernel 1's f32 variant, 3xTF32), and local matching
     pages = {"global_matching_int8": kernel_global_int8(
                  dev, 272 * 480, 272 * 480, 100, 128, 4, page_1080p),
              "global_matching (f32)": kernel_global(
                  dev, 272 * 480, 272 * 480, 100, 128, 4, torch.float32,
                  page_1080p)}
+    pages["local_matching"] = kernel_local(
+        dev, (136, 240), 100, 128, 4, 15, "1080p stream, 1 launch per observe")
     for name, page in pages.items():
-        log(f"[kernels] {name} at one 1080p page: " + json.dumps(
+        log(f"[kernels] {name} at the 1080p stream's shape: " + json.dumps(
             {k: page[k] for k in ("max_abs_err", "ms", "kernel_only_ms",
                                   "plain_ms", "bound_ms", "bound_by",
                                   "library_ms") if k in page}))

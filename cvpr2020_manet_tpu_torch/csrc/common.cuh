@@ -1,6 +1,8 @@
 // Shared helpers of the port's matching kernels.
 #pragma once
 
+#include <stdint.h>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -41,6 +43,14 @@ __device__ __forceinline__ float normalize_distance(float d) {
 // clamped to [0, kBig] and normalized.
 __device__ __forceinline__ float finish_distance(float emin, float qn) {
   return normalize_distance(fminf(fmaxf(emin + qn, 0.f), kBig));
+}
+
+// x rounded to TF32 (to nearest, ties away): the f32 bit pattern with the
+// low 13 bits zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -14,9 +14,9 @@
 //
 // The TPU grid's sequential k axis becomes a loop inside the block: a
 // block owns a tile of queries and walks every k-block; each key tile is
-// folded into a running row-min right away and, at the end of its k-block,
-// into the block's (queries, O) accumulator in shared memory. The distance
-// matrix never reaches device memory.
+// folded into a running row-min right away and, at the end of its object
+// (or, in the f32 and int8 kernels, of its k-block), into the query's
+// result. The distance matrix never reaches device memory.
 //
 // Bound on an H100: the cross term is 2 Nq Nk C operations against
 // Nq C + Nk C input elements, far above the card's ridge point, so the
@@ -54,15 +54,21 @@
 // epilogue with the other's products.
 //
 // Four variants:
-// - bf16 with C = 128 (the model's path): tensor cores through
-//   `mma.sync.m16n8k16` (bf16 in, f32 accumulate). A block of 4 warps owns
-//   128 queries; each warp keeps the A fragments of its 32 queries x 128
-//   channels in registers for the whole kernel and reuses every B fragment
-//   for two 16-row tiles. 64-key tiles of -2k stream through shared memory
-//   with cp.async, double-buffered. `mma.sync` reaches a fraction of the
-//   `wgmma` peak; a warpgroup (wgmma + TMA) version is the next step.
-// - bf16 argmin (kernel 4): `wgmma.m64n64k16` with the queries' A
-//   fragments in registers, split key range, merge in key order (above).
+// - bf16 with C = 128 (the model's path, kernel 1): the kernel-4 mainloop
+//   below with a min-only epilogue (`global_matching_wgmma<false>`) and
+//   128-key tiles (`wgmma.m64n128k16`, a 3-stage ring), the queries' A
+//   fragments in registers: the running minimum of the current object
+//   stays in registers, one block per query tile, no key split (the
+//   round's 388,800 queries give some 3,000 query tiles). Bound: the products (989 TFLOP/s bf16); the min epilogue (an
+//   add and a min per pair on the CUDA cores) comes to about a quarter of
+//   it. Its earlier route, `mma.sync.m16n8k16`, stays near 30% of the
+//   bf16 peak however many warps an SM holds; this one reaches about half
+//   of it at the round's shape, where the products, the key tiles' loads
+//   through L2 (Nq / 128 passes over the keys, 20 GB) and the epilogue
+//   each take a large share of the time and overlap only in part.
+// - bf16 argmin (kernel 4): the same mainloop with the argmin epilogue
+//   (`global_matching_wgmma<true>`), split key range, merge in key order
+//   (above).
 // - f32 (the f32 stream's memory, the tiny test config): 3xTF32 on the
 //   tensor cores through `wgmma` (matching_tf32.cuh, shared with the ring
 //   step of ring_matching.cu).
@@ -77,10 +83,11 @@
 //
 //   e = float(q^.k^) * scales[0] + sqnorm,   d = min_k e + float(|q^|^2) * scales[1]
 //
-// is the exact f32 distance between the dequantized vectors. It keeps the
-// bf16 kernel's layout with `mma.sync.m16n8k32` (int8 in, int32
-// accumulate): an int8 row of 128 channels is 128 bytes, so a tile holds 128
-// keys in the shared memory that holds 64 bf16 keys. The cross term is
+// is the exact f32 distance between the dequantized vectors. It runs on
+// `mma.sync.m16n8k32` (int8 in, int32 accumulate): a block of 4 warps owns
+// 128 queries, each warp the A fragments of 32 in registers, and 128-key
+// tiles (an int8 row of 128 channels is 128 bytes) stream through shared
+// memory with cp.async, double-buffered. The cross term is
 // exact in int32, and below 128 * 127^2 = 2,064,512 < 2^22 in magnitude, so
 // the accumulators start at the bits of the float 1.5 * 2^23: the sum then
 // reads as the float 1.5 * 2^23 + cross, and one exact subtraction gives
@@ -104,12 +111,10 @@ using manet::O_MAX;
 
 // ------------------------------------------------------------ tensor cores
 
-constexpr int TILE_K = 64;                 // keys per tile; divides block_k
 constexpr int MMA_C = 128;                 // channels (the padded embedding)
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_ROWS = 32;               // queries per warp (2 m16 tiles)
 constexpr int MMA_TQ = MMA_WARPS * MMA_ROWS;
-constexpr int MMA_PITCH = MMA_C + 8;       // bf16 per staged key row
 constexpr int MMA_KSTEPS = MMA_C / 16;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -123,158 +128,12 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // First block at or after kb that holds an object (slack blocks skipped).
 __device__ __forceinline__ int next_block(const int* __restrict__ block_obj,
                                           int kb, int nkb, int num_obj) {
   while (kb < nkb && static_cast<unsigned>(block_obj[kb]) >= static_cast<unsigned>(num_obj)) ++kb;
   return kb;
 }
-
-__global__ void __launch_bounds__(MMA_WARPS * 32, 3)
-global_matching_mma_bf16(const __nv_bfloat16* __restrict__ query,
-                         const __nv_bfloat16* __restrict__ neg2,
-                         const float* __restrict__ sqnorm,
-                         const int* __restrict__ block_obj,
-                         float* __restrict__ out, int64_t nq, int nkb,
-                         int block_k, int num_obj) {
-  __shared__ __align__(16) __nv_bfloat16 ks[2][TILE_K * MMA_PITCH];
-  __shared__ float acc[MMA_TQ][O_MAX];
-  __shared__ float qn[MMA_TQ];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * MMA_TQ;
-
-  for (int i = tid; i < MMA_TQ * O_MAX; i += MMA_WARPS * 32)
-    (&acc[0][0])[i] = manet::kBig;
-
-  // A fragments of this warp's 32 queries (rows g, g+8 of two m16 tiles)
-  // and their partial |q|^2 over the channels this lane holds.
-  uint32_t a[2][MMA_KSTEPS][4];
-  float qsq[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int64_t row = q0 + warp * MMA_ROWS + m * 16 + g + half * 8;
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(query + row * MMA_C);
-#pragma unroll
-      for (int s = 0; s < MMA_KSTEPS; ++s) {
-        const uint32_t lo = row < nq ? src[s * 8 + t] : 0u;       // cols 2t, 2t+1
-        const uint32_t hi = row < nq ? src[s * 8 + 4 + t] : 0u;   // cols 2t+8, 2t+9
-        a[m][s][half] = lo;
-        a[m][s][2 + half] = hi;
-        const __nv_bfloat162 l2 = *reinterpret_cast<const __nv_bfloat162*>(&lo);
-        const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&hi);
-        const float2 lf = __bfloat1622float2(l2), hf = __bfloat1622float2(h2);
-        qsq[m][half] += lf.x * lf.x + lf.y * lf.y + hf.x * hf.x + hf.y * hf.y;
-      }
-    }
-  }
-
-  // stage tile (kb, kt) of -2k into buffer `buf`: 64 rows x 256 bytes
-  auto load_tile = [&](int buf, int kb, int kt) {
-    const __nv_bfloat16* src = neg2 + (static_cast<int64_t>(kb) * block_k + kt) * MMA_C;
-#pragma unroll
-    for (int j = 0; j < TILE_K * MMA_C / 8 / (MMA_WARPS * 32); ++j) {
-      const int idx = tid + j * MMA_WARPS * 32;
-      const int row = idx >> 4, chunk = idx & 15;
-      cp_async16(&ks[buf][row * MMA_PITCH + chunk * 8], src + row * MMA_C + chunk * 8);
-    }
-  };
-
-  float rmin[2][2] = {{manet::kBig, manet::kBig}, {manet::kBig, manet::kBig}};
-  int kb = next_block(block_obj, 0, nkb, num_obj), kt = 0, buf = 0;
-  if (kb < nkb) load_tile(0, kb, 0);
-  cp_async_commit();
-  while (kb < nkb) {
-    int nkt = kt + TILE_K, nkb2 = kb;
-    if (nkt == block_k) {
-      nkt = 0;
-      nkb2 = next_block(block_obj, kb + 1, nkb, num_obj);
-    }
-    if (nkb2 < nkb) load_tile(buf ^ 1, nkb2, nkt);
-    cp_async_commit();
-    cp_async_wait_one();   // this tile has landed
-    __syncthreads();
-
-    const __nv_bfloat16* tile = ks[buf];
-    const float* sq = sqnorm + static_cast<int64_t>(kb) * block_k + kt;
-#pragma unroll 1
-    for (int ns = 0; ns < TILE_K / 8; ns += 2) {
-      float d[2][2][4] = {};   // [n-subtile][m-tile][fragment]
-#pragma unroll
-      for (int s = 0; s < MMA_KSTEPS; ++s) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const uint32_t* brow = reinterpret_cast<const uint32_t*>(
-              tile + ((ns + n) * 8 + g) * MMA_PITCH + s * 16);
-          const uint32_t b0 = brow[t], b1 = brow[4 + t];
-          mma_bf16(d[n][0], a[0][s], b0, b1);
-          mma_bf16(d[n][1], a[1][s], b0, b1);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const float2 s2 = *reinterpret_cast<const float2*>(sq + (ns + n) * 8 + 2 * t);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          rmin[m][0] = fminf(rmin[m][0], fminf(d[n][m][0] + s2.x, d[n][m][1] + s2.y));
-          rmin[m][1] = fminf(rmin[m][1], fminf(d[n][m][2] + s2.x, d[n][m][3] + s2.y));
-        }
-      }
-    }
-
-    if (nkb2 != kb) {   // the k-block ends: fold its minima into its object
-      const int obj = block_obj[kb];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float v = rmin[m][half];
-          v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-          v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-          if (t == 0) {
-            float* cell = &acc[warp * MMA_ROWS + m * 16 + g + half * 8][obj];
-            *cell = fminf(*cell, v);
-          }
-          rmin[m][half] = manet::kBig;
-        }
-      }
-    }
-    __syncthreads();   // the tile is consumed before its buffer refills
-    kb = nkb2;
-    kt = nkt;
-    buf ^= 1;
-  }
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float v = qsq[m][half];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (t == 0) qn[warp * MMA_ROWS + m * 16 + g + half * 8] = v;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < MMA_TQ * num_obj; i += MMA_WARPS * 32) {
-    const int row = i / num_obj, o = i - row * num_obj;
-    const int64_t gq = q0 + row;
-    if (gq < nq) out[gq * num_obj + o] = manet::finish_distance(acc[row][o], qn[row]);
-  }
-}
-
 
 // The k-blocks [lo, hi) of split s of S: the live blocks of ordinals
 // [s L / S, (s + 1) L / S), L the number of live blocks (slack blocks
@@ -297,18 +156,28 @@ __device__ void split_range(const int* __restrict__ block_obj, int nkb,
   }
 }
 
-// ------------------------------------------ bf16 argmin on wgmma (kernel 4)
+// ------------------- bf16 on wgmma: kernel 1 (min) and kernel 4 (argmin)
 
-constexpr int AW_WG = 2;                   // warpgroups per block, m64 each
+// Warpgroups per block, m64 each: 2, two blocks an SM. (A block of 4
+// warpgroups, one an SM, halves the keys' L2 traffic but timed no faster
+// for kernel 1 at the round's shape.)
+constexpr int AW_WG = 2;
 constexpr int AW_BM = 64 * AW_WG;          // queries per block
 constexpr int AW_THREADS = 128 * AW_WG;
-constexpr int AW_BN = 64;                  // keys per tile; divides block_k
-constexpr int AW_STAGES = 4;               // key tiles in flight
-constexpr int AW_ATOM = AW_BN * 128;       // 64 keys x 64 channels (128 B rows)
-// shared memory from a 1024-byte aligned base: each stage's two swizzle
-// atoms (128 channels), then each stage's |k|^2
-constexpr int AW_OFF_SQ = AW_STAGES * 2 * AW_ATOM;
-constexpr int AW_SMEM = AW_OFF_SQ + AW_STAGES * AW_BN * 4 + 1024;  // + alignment
+// Keys per tile (divides block_k): kernel 4 64, kernel 1 128, which halves
+// the tile's fixed costs (barrier, walk, waits) per key.
+__host__ __device__ constexpr int aw_bn(bool argmin) { return argmin ? 64 : 128; }
+
+// The ring of a BN-key tile width, in shared memory from a 1024-byte
+// aligned base: each stage's two swizzle atoms (128 channels), then each
+// stage's |k|^2.
+template <int BN>
+struct AwRing {
+  static constexpr int STAGES = BN == 64 ? 4 : 3;   // key tiles in flight
+  static constexpr int ATOM = BN * 128;             // BN keys x 64 channels (128 B rows)
+  static constexpr int OFF_SQ = STAGES * 2 * ATOM;
+  static constexpr int SMEM = OFF_SQ + STAGES * BN * 4 + 1024;   // + alignment
+};
 
 // d = A (64 x 16, registers) * B (64 x 16)^T (+ d if `accumulate`), bf16
 // in, f32 sums; B K-major in the 128-byte swizzle
@@ -333,8 +202,49 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// The argmin kernel's walk over its 64-key tiles: the live k-blocks of
+// As wgmma_bf16_rs with B 128 keys wide (m64n128k16)
+__device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The tile's product for one k16 step, B BN keys wide
+__device__ __forceinline__ void tile_mma(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
+  wgmma_bf16_rs(d, a, b, accumulate);
+}
+__device__ __forceinline__ void tile_mma(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
+  wgmma_bf16_rs_n128(d, a, b, accumulate);
+}
+
+// The wgmma kernel's walk over its BN-key tiles: the live k-blocks of
 // [kb, kb_end) in order, slack blocks skipped.
+template <int BN>
 struct TileWalk {
   const int* block_obj;
   int kb_end, block_k, num_obj;
@@ -343,7 +253,7 @@ struct TileWalk {
   __device__ void skip_slack() { kb = next_block(block_obj, kb, kb_end, num_obj); }
   __device__ bool done() const { return kb >= kb_end; }
   __device__ void next() {
-    kt += AW_BN;
+    kt += BN;
     if (kt < block_k) return;
     kt = 0;
     ++kb;
@@ -351,22 +261,28 @@ struct TileWalk {
   }
 };
 
-// Kernel 4. A block of two warpgroups owns 128 queries, held as wgmma A
-// fragments in registers (each warp 16 rows x 128 channels, the
-// mma.m16n8k16 layout), and walks its split's live k-blocks in 64-key
-// tiles: cp.async streams each tile of -2k (in the 128-byte swizzle that
-// the B descriptor reads) and its |k|^2 through a ring of 4 stages, which
-// both warpgroups read, 8 `wgmma.m64n64k16` per warpgroup form the tile's
-// cross terms, and the epilogue folds the candidates, in ascending row
-// order, into the running (min, row) of the object. With `part_v` set,
-// the block is split blockIdx.y of gridDim.y and writes its partial (min,
-// row) per (query, object) to part_v / part_i (gridDim.y, nq, num_obj),
-// (1e8, -1) for an object it does not touch, and split 0 writes |q|^2 to
-// `part_qn` (nq,); without, it writes `out` / `idx`. Two blocks share an
-// SM, so one block's epilogue overlaps the other's products; a key tile
-// feeds 128 queries, which halves the keys' traffic from L2 against 64.
+// Kernels 1 (bf16, ARGMIN false) and 4 (ARGMIN true). A block of
+// two warpgroups owns 128 queries, held as wgmma A fragments
+// in registers (each warp 16 rows x 128 channels, the mma.m16n8k16
+// layout), and walks its split's live k-blocks in BN-key tiles (64 for
+// kernel 4, 128 for kernel 1): cp.async streams each tile of -2k (in the
+// 128-byte swizzle that the B descriptor reads) and its |k|^2 through a
+// ring of 4 (3) stages, which all warpgroups read, 8 `wgmma.m64nBNk16`
+// per warpgroup form the tile's cross terms,
+// and the epilogue folds the candidates into the running minimum of the
+// object (with ARGMIN: in ascending row order, the running (min, row)),
+// held in registers because an object's blocks are consecutive; at the
+// object's last tile the quad reduces it and its lane 0 writes it. With
+// `part_v` set (ARGMIN only), the block is split blockIdx.y of gridDim.y
+// and writes its partial (min, row) per (query, object) to part_v /
+// part_i (gridDim.y, nq, num_obj), (1e8, -1) for an object it does not
+// touch, and split 0 writes |q|^2 to `part_qn` (nq,); without, it writes
+// `out` (/ `idx`). Two blocks share an SM, so one block's epilogue
+// overlaps the other's products; a key tile feeds 128 queries, which
+// halves the keys' traffic from L2 against 64.
+template <bool ARGMIN>
 __global__ void __launch_bounds__(AW_THREADS, 2)
-global_matching_argmin_wgmma(const __nv_bfloat16* __restrict__ query,
+global_matching_wgmma(const __nv_bfloat16* __restrict__ query,
                              const __nv_bfloat16* __restrict__ neg2,
                              const float* __restrict__ sqnorm,
                              const int* __restrict__ block_obj,
@@ -374,6 +290,9 @@ global_matching_argmin_wgmma(const __nv_bfloat16* __restrict__ query,
                              float* __restrict__ part_v, int* __restrict__ part_i,
                              float* __restrict__ part_qn, int64_t nq, int nkb,
                              int block_k, int num_obj) {
+  constexpr int BN = aw_bn(ARGMIN);
+  using Ring = AwRing<BN>;
+  using Walk = TileWalk<BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -409,7 +328,7 @@ global_matching_argmin_wgmma(const __nv_bfloat16* __restrict__ query,
   // prefilled by the quad's lane 0, which also writes the row's results
   // later (same thread, program order)
   int kb_lo = 0, kb_hi = nkb;
-  if (part_v != nullptr) {
+  if (ARGMIN && part_v != nullptr) {
     split_range(block_obj, nkb, num_obj, blockIdx.y, gridDim.y, kb_lo, kb_hi);
     const int64_t off = static_cast<int64_t>(blockIdx.y) * nq * num_obj;
     part_v += off;
@@ -419,7 +338,7 @@ global_matching_argmin_wgmma(const __nv_bfloat16* __restrict__ query,
   for (int half = 0; half < 2; ++half) {
     const int64_t row = rows[half];
     if (t != 0 || row >= nq) continue;
-    if (part_v != nullptr) {
+    if (ARGMIN && part_v != nullptr) {
       if (blockIdx.y == 0) part_qn[row] = qsq[half];
       for (int o = 0; o < num_obj; ++o) {
         part_v[row * num_obj + o] = manet::kBig;
@@ -428,73 +347,78 @@ global_matching_argmin_wgmma(const __nv_bfloat16* __restrict__ query,
     } else {
       for (int o = 0; o < num_obj; ++o) {
         out[row * num_obj + o] = manet::finish_distance(manet::kBig, qsq[half]);
-        idx[row * num_obj + o] = -1;
+        if (ARGMIN) idx[row * num_obj + o] = -1;
       }
     }
   }
 
-  // stage tile `w` into `stage`: 64 rows x 16 chunks of 16 bytes, and its
-  // 64 |k|^2
-  auto load = [&](int stage, const TileWalk& w) {
+  // stage tile `w` into `stage`: BN rows x 16 chunks of 16 bytes, and its
+  // BN |k|^2
+  auto load = [&](int stage, const Walk& w) {
     const int64_t k0 = static_cast<int64_t>(w.kb) * block_k + w.kt;
-    uint8_t* dst = smem + stage * 2 * AW_ATOM;
+    uint8_t* dst = smem + stage * 2 * Ring::ATOM;
 #pragma unroll
-    for (int i = 0; i < AW_BN * 16 / AW_THREADS; ++i) {
+    for (int i = 0; i < BN * 16 / AW_THREADS; ++i) {
       const int p = tid + i * AW_THREADS, r = p >> 4, j = p & 15;
-      cp_async16(dst + (j >> 3) * AW_ATOM + manet::swizzle128(r, j & 7),
+      cp_async16(dst + (j >> 3) * Ring::ATOM + manet::swizzle128(r, j & 7),
                  neg2 + (k0 + r) * MMA_C + j * 8);
     }
-    if (tid < AW_BN / 4)
-      cp_async16(smem + AW_OFF_SQ + (stage * AW_BN + tid * 4) * 4, sqnorm + k0 + tid * 4);
+    if (tid < BN / 4)
+      cp_async16(smem + Ring::OFF_SQ + (stage * BN + tid * 4) * 4, sqnorm + k0 + tid * 4);
   };
 
-  TileWalk cur{block_obj, kb_hi, block_k, num_obj, kb_lo, 0};
+  Walk cur{block_obj, kb_hi, block_k, num_obj, kb_lo, 0};
   cur.skip_slack();
-  TileWalk ahead = cur;
-  for (int i = 0; i < AW_STAGES - 1; ++i) {
+  Walk ahead = cur;
+  for (int i = 0; i < Ring::STAGES - 1; ++i) {
     if (!ahead.done()) {
       load(i, ahead);
       ahead.next();
     }
     cp_async_commit();
   }
-  float d[32] = {};
+  float d[BN / 2] = {};
   float rmin[2] = {manet::kBig, manet::kBig};
   int rarg[2] = {-1, -1};
   for (int it = 0; !cur.done(); ++it) {
-    const int stage = it % AW_STAGES;
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(AW_STAGES - 2));   // this tile landed
+    const int stage = it % Ring::STAGES;
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(Ring::STAGES - 2));   // this tile landed
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();   // and every thread is done with the stage refilled here
     if (!ahead.done()) {
-      load((it + AW_STAGES - 1) % AW_STAGES, ahead);
+      load((it + Ring::STAGES - 1) % Ring::STAGES, ahead);
       ahead.next();
     }
     cp_async_commit();
 
-    const uint32_t b = base + stage * 2 * AW_ATOM;
+    const uint32_t b = base + stage * 2 * Ring::ATOM;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int s = 0; s < MMA_KSTEPS; ++s)   // 16 channels = 32 bytes a step
-      wgmma_bf16_rs(d, a[s], manet::sw128_desc(b + (s >> 2) * AW_ATOM + (s & 3) * 32), s > 0);
+      tile_mma(d, a[s], manet::sw128_desc(b + (s >> 2) * Ring::ATOM + (s & 3) * 32), s > 0);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
 
-    // candidates cross + |k|^2 of columns 8i + 2t, 8i + 2t + 1, in
-    // ascending row order
-    const float* sq = reinterpret_cast<const float*>(smem + AW_OFF_SQ) + stage * AW_BN;
+    // candidates cross + |k|^2 of columns 8i + 2t, 8i + 2t + 1 (with
+    // ARGMIN in ascending row order)
+    const float* sq = reinterpret_cast<const float*>(smem + Ring::OFF_SQ) + stage * BN;
     const int col = cur.kb * block_k + cur.kt + 2 * t;
 #pragma unroll
-    for (int i = 0; i < AW_BN / 8; ++i) {
+    for (int i = 0; i < BN / 8; ++i) {
       const float2 s2 = *reinterpret_cast<const float2*>(sq + i * 8 + 2 * t);
-      keep_min(rmin[0], rarg[0], d[4 * i] + s2.x, col + i * 8);
-      keep_min(rmin[0], rarg[0], d[4 * i + 1] + s2.y, col + i * 8 + 1);
-      keep_min(rmin[1], rarg[1], d[4 * i + 2] + s2.x, col + i * 8);
-      keep_min(rmin[1], rarg[1], d[4 * i + 3] + s2.y, col + i * 8 + 1);
+      if constexpr (ARGMIN) {
+        keep_min(rmin[0], rarg[0], d[4 * i] + s2.x, col + i * 8);
+        keep_min(rmin[0], rarg[0], d[4 * i + 1] + s2.y, col + i * 8 + 1);
+        keep_min(rmin[1], rarg[1], d[4 * i + 2] + s2.x, col + i * 8);
+        keep_min(rmin[1], rarg[1], d[4 * i + 3] + s2.y, col + i * 8 + 1);
+      } else {
+        rmin[0] = fminf(rmin[0], fminf(d[4 * i] + s2.x, d[4 * i + 1] + s2.y));
+        rmin[1] = fminf(rmin[1], fminf(d[4 * i + 2] + s2.x, d[4 * i + 3] + s2.y));
+      }
     }
 
     const int obj = block_obj[cur.kb];
@@ -505,11 +429,18 @@ global_matching_argmin_wgmma(const __nv_bfloat16* __restrict__ query,
     for (int half = 0; half < 2; ++half) {
       float v = rmin[half];
       int i = rarg[half];
-      argmin_xor(v, i, 1);
-      argmin_xor(v, i, 2);
+      if constexpr (ARGMIN) {
+        argmin_xor(v, i, 1);
+        argmin_xor(v, i, 2);
+      } else {
+        v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      }
       const int64_t row = rows[half];
       if (t == 0 && row < nq) {
-        if (part_v != nullptr) {
+        if (!ARGMIN) {
+          out[row * num_obj + obj] = manet::finish_distance(v, qsq[half]);
+        } else if (part_v != nullptr) {
           part_v[row * num_obj + obj] = v;
           part_i[row * num_obj + obj] = i;
         } else {
@@ -845,7 +776,7 @@ global_matching_mma_int8(const int8_t* __restrict__ query,
 bool shape_ok(long long nq, int c, int nkb, int block_k, int num_obj,
               bool bf16, bool argmin) {
   if (nq <= 0 || nkb < 0 || num_obj <= 0 || num_obj > O_MAX || block_k <= 0 ||
-      block_k % TILE_K != 0)
+      block_k % aw_bn(argmin) != 0)
     return false;
   if (argmin && static_cast<long long>(nkb) * block_k > 0x7fffffffLL) return false;
   if (bf16) return c == MMA_C;
@@ -874,12 +805,17 @@ extern "C" int manet_global_matching(const void* query, const void* neg2,
         static_cast<const float*>(sqnorm), static_cast<const int*>(block_obj),
         static_cast<float*>(out), nullptr, nullptr, nq, c, nkb, block_k,
         num_obj, s);
-  const dim3 grid(static_cast<unsigned>((nq + MMA_TQ - 1) / MMA_TQ));
-  global_matching_mma_bf16<<<grid, MMA_WARPS * 32, 0, s>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      global_matching_wgmma<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      AwRing<aw_bn(false)>::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((nq + AW_BM - 1) / AW_BM));
+  global_matching_wgmma<false><<<grid, AW_THREADS, AwRing<aw_bn(false)>::SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(query),
       static_cast<const __nv_bfloat16*>(neg2),
       static_cast<const float*>(sqnorm), static_cast<const int*>(block_obj),
-      static_cast<float*>(out), nq, nkb, block_k, num_obj);
+      static_cast<float*>(out), nullptr, nullptr, nullptr, nullptr, nq, nkb,
+      block_k, num_obj);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -913,11 +849,12 @@ extern "C" int manet_global_matching_argmin(
   int* part_i = splits > 1 ? reinterpret_cast<int*>(part_v + splits * n) : nullptr;
   float* part_qn = splits > 1 ? reinterpret_cast<float*>(part_i + splits * n) : nullptr;
   cudaError_t err = cudaFuncSetAttribute(
-      global_matching_argmin_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, AW_SMEM);
+      global_matching_wgmma<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      AwRing<aw_bn(true)>::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((nq + AW_BM - 1) / AW_BM),
                   static_cast<unsigned>(splits));
-  global_matching_argmin_wgmma<<<grid, AW_THREADS, AW_SMEM, s>>>(
+  global_matching_wgmma<true><<<grid, AW_THREADS, AwRing<aw_bn(true)>::SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(query),
       static_cast<const __nv_bfloat16*>(neg2), sq, bo, o, ix, part_v, part_i,
       part_qn, nq, nkb, block_k, num_obj);

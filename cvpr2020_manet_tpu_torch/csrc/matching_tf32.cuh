@@ -89,12 +89,6 @@ __device__ __forceinline__ uint32_t swizzle128(int r, int j) {
   return static_cast<uint32_t>(r * 128 + ((j ^ (r & 7)) << 4));
 }
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 // x = hi + lo, both TF32 (f32 bit patterns with the low 13 bits zero)
 __device__ __forceinline__ void split_tf32(const float4& x, uint4& hi, uint4& lo) {
   hi = make_uint4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));

@@ -13,8 +13,10 @@ Modules work in NCHW. `resize_bilinear` / `resize_nearest` take the JAX
 package's layout (spatial axes third- and second-to-last) and implement
 its fast paths exactly: integer up-factors (half-pixel centres, edge
 clamp) and the antialiased /2 downsample of `jax.image.resize`
-(1/8, 3/8, 3/8, 1/8 taps, edge taps dropped and renormalized). The
-general `jax.image.resize` fallback is not ported; other factors raise.
+(1/8, 3/8, 3/8, 1/8 taps, edge taps dropped and renormalized). Any other
+factor takes the JAX package's fallback, `jax.image.resize` itself,
+written here from its algorithm (`_resize_general_bilinear`,
+`_resize_general_nearest`) under the same dispatch rule.
 """
 
 from __future__ import annotations
@@ -115,25 +117,73 @@ def _downsample_axis_2x(x: torch.Tensor, axis: int) -> torch.Tensor:
     return y.movedim(0, axis)
 
 
-def resize_bilinear_axes(x: torch.Tensor, shape: tuple[int, int],
-                         h_ax: int, w_ax: int) -> torch.Tensor:
-    """Bilinear resize of spatial axes (h_ax, w_ax) to `shape`, computed in
-    f32 and returned in x's dtype. Integer up-factors and /2 only."""
-    orig_dtype = x.dtype
-    y = x.float()
-    for axis, dst in ((h_ax, shape[0]), (w_ax, shape[1])):
-        src = y.shape[axis]
+def _fast_axis_bilinear(y: torch.Tensor, axis: int, dst: int):
+    """The fast path along one axis (f32 in, f32 out), or None where the
+    factor is neither an integer up-factor nor /2."""
+    src = y.shape[axis]
+    if dst == src:
+        return y
+    if dst > src and dst % src == 0:
+        return _upsample_axis_int(y, axis, dst // src)
+    if src == 2 * dst and src >= 4:
+        return _downsample_axis_2x(y, axis)
+    return None
+
+
+def _triangle_weights(src: int, dst: int) -> torch.Tensor:
+    """jax.image.resize's (src, dst) bilinear weight matrix (its
+    `compute_weight_mat` with the triangle kernel, antialias on, no
+    translation), in f32: a triangle widened by the down-factor, each
+    output's column normalized to sum 1, and zero where the sample lies
+    outside the input."""
+    inv_scale = 1.0 / (dst / src)
+    kernel_scale = max(inv_scale, 1.0)
+    f32 = torch.float32
+    sample_f = (torch.arange(dst, dtype=f32) + 0.5) * inv_scale - 0.5
+    x = (sample_f[None, :] - torch.arange(src, dtype=f32)[:, None]).abs() \
+        / kernel_scale
+    weights = torch.clamp(1.0 - x, min=0.0)
+    total = weights.sum(dim=0, keepdim=True)
+    eps = float(torch.finfo(f32).eps)
+    weights = torch.where(total.abs() > 1000.0 * eps,
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= src - 0.5)
+    return torch.where(inside[None, :], weights, 0.0)
+
+
+def _resize_general_bilinear(x: torch.Tensor, shape: tuple[int, int],
+                             h_ax: int, w_ax: int) -> torch.Tensor:
+    """`jax.image.resize(x, ..., "bilinear")`: each resized axis contracted
+    with its weight matrix, cast to x's dtype, in x's dtype (JAX contracts
+    at HIGHEST precision; it does not work in f32 as the fast paths do).
+    The axes are contracted in the order of JAX's einsum path, the one of
+    fewer multiply-adds (H first on a tie): in bf16 the rounding of the
+    intermediate depends on it."""
+    (sh, sw), (dh, dw) = (x.shape[h_ax], x.shape[w_ax]), shape
+    axes = [(h_ax, dh), (w_ax, dw)]
+    if sh * dw * (sw + dh) < sw * dh * (sh + dw):
+        axes.reverse()
+    y = x
+    for axis, dst in axes:
+        src = x.shape[axis]
         if dst == src:
             continue
-        if dst > src and dst % src == 0:
-            y = _upsample_axis_int(y, axis, dst // src)
-        elif src == 2 * dst and src >= 4:
-            y = _downsample_axis_2x(y, axis)
-        else:
-            raise NotImplementedError(
-                f"bilinear resize {src} -> {dst}: only integer up-factors "
-                "and /2 are ported (the jax.image.resize fallback is not)")
-    return y.to(orig_dtype)
+        wm = _triangle_weights(src, dst).to(device=x.device, dtype=x.dtype)
+        y = torch.tensordot(y.movedim(axis, -1), wm, dims=1).movedim(-1, axis)
+    return y
+
+
+def resize_bilinear_axes(x: torch.Tensor, shape: tuple[int, int],
+                         h_ax: int, w_ax: int) -> torch.Tensor:
+    """Bilinear resize of spatial axes (h_ax, w_ax) to `shape`, returned in
+    x's dtype. As in the JAX package, the fast path is tried on H, then on
+    W, in f32; if either axis misses it, the general resize runs on the
+    original x over both axes, in x's own dtype."""
+    yh = _fast_axis_bilinear(x.float(), h_ax, shape[0])
+    y = None if yh is None else _fast_axis_bilinear(yh, w_ax, shape[1])
+    if y is not None:
+        return y.to(x.dtype)
+    return _resize_general_bilinear(x, shape, h_ax, w_ax)
 
 
 def resize_bilinear(x: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
@@ -142,22 +192,40 @@ def resize_bilinear(x: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
     return resize_bilinear_axes(x, shape, x.ndim - 3, x.ndim - 2)
 
 
-def resize_nearest(x: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
-    """Nearest resize of NHWC (or HWC) label/mask maps, integer factors."""
+def _fast_axis_nearest(y: torch.Tensor, axis: int, dst: int):
+    """Integer factors along one axis (repeat / strided slice), else None."""
+    src = y.shape[axis]
+    if dst == src:
+        return y
+    if dst > src and dst % src == 0:
+        return torch.repeat_interleave(y, dst // src, dim=axis)
+    if src % dst == 0:
+        f = src // dst
+        idx = [slice(None)] * y.ndim
+        idx[axis] = slice(f // 2, None, f)
+        return y[tuple(idx)]
+    return None
+
+
+def _resize_general_nearest(x: torch.Tensor,
+                            shape: tuple[int, int]) -> torch.Tensor:
+    """`jax.image.resize(x, ..., "nearest")`: along each resized axis,
+    source index floor(f32((i + 0.5) * src / dst))."""
     y = x
     for axis, dst in ((x.ndim - 3, shape[0]), (x.ndim - 2, shape[1])):
-        src = y.shape[axis]
+        src = x.shape[axis]
         if dst == src:
             continue
-        if dst > src and dst % src == 0:
-            y = torch.repeat_interleave(y, dst // src, dim=axis)
-        elif src % dst == 0:
-            f = src // dst
-            idx = [slice(None)] * y.ndim
-            idx[axis] = slice(f // 2, None, f)
-            y = y[tuple(idx)]
-        else:
-            raise NotImplementedError(
-                f"nearest resize {src} -> {dst}: only integer factors are "
-                "ported")
+        idx = torch.floor((torch.arange(dst, dtype=torch.float32) + 0.5)
+                          * src / dst).long()
+        y = y.index_select(axis, idx.to(x.device))
     return y
+
+
+def resize_nearest(x: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of NHWC (or HWC) label/mask maps: integer factors on
+    the fast path (tried on H, then W), else the general resize of the
+    original x over both axes, as in the JAX package."""
+    yh = _fast_axis_nearest(x, x.ndim - 3, shape[0])
+    y = None if yh is None else _fast_axis_nearest(yh, x.ndim - 2, shape[1])
+    return _resize_general_nearest(x, shape) if y is None else y

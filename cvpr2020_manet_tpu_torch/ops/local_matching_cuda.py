@@ -12,7 +12,10 @@ kernel `local_matching_pallas.py::_kernel`) then returns
     normalize(clamp(|q|^2 + min over the window of (kno - 2 q.k), 0, 1e8))
 
 `local_matching_prepared` launches it for CUDA tensors and runs the plain
-version below for CPU tensors. There is no fallback between them.
+version below for CPU tensors. There is no fallback between them. The
+kernel tiles the frame into patches of query rows and forms the cross
+terms on the TF32 tensor cores in 3xTF32 (f32 accuracy); it takes windows
+up to `LOCAL_WINDOW_MAX`.
 
 `local_matching_argmin` does the same with the kernel's argmin variant
 (which replaces `local_matching_pallas.py::_kernel_argmin`): it also
@@ -35,6 +38,11 @@ import torch.nn.functional as F
 from cvpr2020_manet_tpu_torch.kernels import build
 from cvpr2020_manet_tpu_torch.ops.matching import (
     WRONG_LABEL_PADDING_DISTANCE, acc_dtype, normalize_distance)
+
+
+# The widest window of kernel 2: a patch row's 16 + 2w keys take 4 warps
+# of 3 n8 tiles, whose patches fit a block at every C and O taken here.
+LOCAL_WINDOW_MAX = 40
 
 
 def _round_up(x: int, m: int) -> int:
@@ -106,9 +114,11 @@ def local_matching_prepared_argmin_plain(q: torch.Tensor, k: torch.Tensor,
     return _plain(q, k, kno, window, argmin=True)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, kno: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, kno: torch.Tensor, window: int,
+           argmin: bool) -> None:
     """What the kernels take: f32, contiguous and 16-byte aligned on one
-    CUDA device, matching shapes, C a multiple of 128 up to 512, O <= 32."""
+    CUDA device, matching shapes, C a multiple of 128 up to 512, O <= 32,
+    and (kernel 2) a window up to LOCAL_WINDOW_MAX."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     h, w, c = q.shape
@@ -126,6 +136,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, kno: torch.Tensor) -> None:
     if c % 128 or c > 512 or o > 32:
         raise ValueError(f"C={c} must be a multiple of 128 up to 512 and "
                          f"O={o} at most 32")
+    if window < 0 or (not argmin and window > LOCAL_WINDOW_MAX):
+        raise ValueError(f"window {window}: 0 to {LOCAL_WINDOW_MAX}")
 
 
 # q, k, kno, out[, idx]; h, w, c, o, window; stream
@@ -138,7 +150,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, kno: torch.Tensor, window: int,
             argmin: bool):
     """Check CUDA inputs and launch the kernel (or its argmin variant).
     -> (out, idx), idx None without `argmin`."""
-    _check(q, k, kno)
+    _check(q, k, kno, window, argmin)
     h, w, c = q.shape
     o = kno.shape[-1]
     out = torch.empty((h, w, o), dtype=torch.float32, device=q.device)

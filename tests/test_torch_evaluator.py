@@ -34,14 +34,15 @@ from cvpr2020_manet_tpu_torch.weights import load_flax_params
 TIE = 1e-5
 
 
-def _configs(image_size, local_downsample):
+def _configs(image_size, local_downsample, mask_stride=1):
     def adjust(cfg):
         return dataclasses.replace(
             cfg,
             model=dataclasses.replace(cfg.model,
                                       local_downsample=local_downsample),
             eval=dataclasses.replace(cfg.eval, image_size=image_size,
-                                     round_segments=1))
+                                     round_segments=1,
+                                     mask_stride=mask_stride))
     return adjust(jax_tiny()), adjust(tiny_test_config())
 
 
@@ -56,7 +57,21 @@ def _counter():
     ("jnp", (64, 96), 2),
 ])
 def test_session_matches_jax(backend, image_size, local_downsample):
-    jcfg, tcfg = _configs(image_size, local_downsample)
+    _session_vs_jax(backend, image_size, local_downsample)
+
+
+def test_session_mask_stride_matches_jax():
+    """A mask stride of 16 at 32x48: the readback resizes the 8x12
+    probabilities to 2x3, a /4 off the resize fast paths, which takes the
+    general resize (JAX's `jax.image.resize` fallback). Labels equal at
+    every pixel, report rows, AUC and J&F@60s equal."""
+    _session_vs_jax("jnp", (32, 48), 1, mask_stride=16, ties=False)
+
+
+def _session_vs_jax(backend, image_size, local_downsample, mask_stride=1,
+                    ties=True):
+    """Both sessions, compared; `ties` excuses labels at argmax ties."""
+    jcfg, tcfg = _configs(image_size, local_downsample, mask_stride)
     kw = dict(image_size=image_size, num_frames=jcfg.eval.max_frames,
               num_sequences=1, num_objects=2, scribble_sets=1)
     jds, tds = JaxSynthetic(**kw), SyntheticDataset(**kw)
@@ -89,11 +104,12 @@ def test_session_matches_jax(backend, image_size, local_downsample):
         tsess, on_masks=lambda *a: tmasks.append(a[-1]))
 
     assert len(jmasks) == len(tmasks) == 2
-    pad = jcfg.eval.pad_to
-    hw_pad = (h + (-h) % pad, w + (-w) % pad)
+    pad, ms = jcfg.eval.pad_to, mask_stride
+    hw_mask = ((h + (-h) % pad) // ms, (w + (-w) % pad) // ms)
     for r, (jm, tm, p) in enumerate(zip(jmasks, tmasks, jprobs)):
-        up = np.sort(np.asarray(jax_resize(jnp.asarray(p), hw_pad)), axis=-1)
-        tie = (up[..., -1] - up[..., -2] <= TIE)[:, :h, :w]
+        up = np.sort(np.asarray(jax_resize(jnp.asarray(p), hw_mask)), axis=-1)
+        up = np.repeat(np.repeat(up, ms, axis=1), ms, axis=2)
+        tie = (up[..., -1] - up[..., -2] <= TIE)[:, :h, :w] & ties
         differ = jm != tm
         assert not (differ & ~tie).any(), (
             f"round {r}: {int((differ & ~tie).sum())} labels differ "

@@ -1,8 +1,11 @@
-"""Resize and GroupNorm of the PyTorch port vs the JAX package (CPU, f32).
+"""Resize and GroupNorm of the PyTorch port vs the JAX package (CPU).
 
 The resize fast paths do the same f32 arithmetic in the same order as the
-JAX ones, so they agree to 1e-6; GroupNorm agrees to 1e-5 (Flax computes
-the variance as E[x^2] - E[x]^2, PyTorch directly).
+JAX ones, so they agree to 1e-6; the general resize (JAX's
+`jax.image.resize` fallback) builds the same weight matrices and contracts
+them in the same order, so it agrees to 1e-6 in f32 and to one ulp in
+bf16. GroupNorm agrees to 1e-5 (Flax computes the variance as
+E[x^2] - E[x]^2, PyTorch directly).
 """
 
 import jax.numpy as jnp
@@ -38,9 +41,39 @@ def test_resize_bilinear_matches_jax(src, dst):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_resize_bilinear_unported_factor_raises():
-    with pytest.raises(NotImplementedError):
-        tl.resize_bilinear(torch.zeros(1, 6, 10, 2), (9, 10))
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 unit in the last place at each value of x (8-bit mantissa)."""
+    return np.spacing(np.abs(x).astype(np.float32)) * 2.0 ** 16
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["nhwc", "hwc"])
+@pytest.mark.parametrize("src,dst", [
+    ((8, 12), (2, 3)),       # /4 (the 8x12 -> 2x3 mask readback)
+    ((12, 12), (3, 3)),      # /4
+    ((6, 6), (9, 9)),        # non-integer up-factor
+    ((10, 10), (3, 3)),      # non-integer down-factor
+    ((8, 10), (4, 15)),      # /2 rows (fast), x1.5 columns (not)
+    ((6, 10), (9, 20)),      # x1.5 rows (not), x2 columns (fast)
+    ((5, 5), (13, 2)),       # W contracted first in JAX's einsum path
+])
+def test_resize_bilinear_general_matches_jax(src, dst, layout, dtype):
+    """Factors off the fast paths take the general resize, as JAX's
+    `jax.image.resize` fallback: in x's own dtype over both axes. f32 to
+    1e-6; bf16 to one bf16 ulp of the JAX value."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, *src, 5)).astype(np.float32)
+    if layout == "hwc":
+        x = x[0]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jl.resize_bilinear(jnp.asarray(x, jdt), dst)
+                      .astype(jnp.float32))
+    got = tl.resize_bilinear(torch.from_numpy(x).to(tdt), dst)
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    tol = 1e-6 if dtype == "float32" else _bf16_ulp(want)
+    assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
 
 
 @pytest.mark.parametrize("src,dst", [((8, 12), (4, 6)), ((4, 6), (16, 24)),
@@ -48,6 +81,21 @@ def test_resize_bilinear_unported_factor_raises():
 def test_resize_nearest_matches_jax(src, dst):
     rng = np.random.default_rng(1)
     x = rng.integers(0, 4, size=(*src, 3)).astype(np.float32)
+    want = np.asarray(jl.resize_nearest(jnp.asarray(x), dst))
+    got = tl.resize_nearest(torch.from_numpy(x), dst).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "hwc"])
+@pytest.mark.parametrize("src,dst", [((7, 7), (3, 3)), ((3, 3), (7, 7)),
+                                     ((8, 6), (4, 9)), ((12, 5), (5, 7))])
+def test_resize_nearest_general_matches_jax(src, dst, layout):
+    """Non-integer factors (on one axis or both) take the general nearest
+    resize of `jax.image.resize`: exactly equal."""
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 4, size=(2, *src, 3)).astype(np.float32)
+    if layout == "hwc":
+        x = x[0]
     want = np.asarray(jl.resize_nearest(jnp.asarray(x), dst))
     got = tl.resize_nearest(torch.from_numpy(x), dst).numpy()
     np.testing.assert_array_equal(got, want)
