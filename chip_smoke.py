@@ -11,21 +11,24 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              each kernel's registers, shared memory and spills (ptxas),
              and the tensor-core route of each tensor-core kernel, read
              from the built libraries' SASS: wgmma (HGMMA) in the f32
-             template, in kernel 1 bf16 and in kernel 4, mma.sync (HMMA)
-             in kernel 2;
+             template, in kernel 1 bf16 and in kernel 4, int8 wgmma
+             (IGMMA) in kernel 3, mma.sync (HMMA) in kernels 2 and 5;
 3. kernels — each kernel against its plain PyTorch version at the shapes
              and dtypes of the path that runs it (max abs error vs a stated
              tolerance, median ms over CUDA events, the plain version's ms,
              the bound, and a library call's ms where one exists): the
-             serving kernels at 480p, the int8 kernel at the 480p round
-             and at one 1080p memory page, kernel 1's f32 variant (3xTF32)
+             serving kernels at 480p, the int8 kernel (which quantizes the
+             query in its prologue) at the 480p round, at one 1080p
+             memory page and at the batch engine's launch (with its key
+             splits), kernel 1's f32 variant (3xTF32)
              at that page (the f32 stream's shape), kernel 2 at the 1080p
              stream's 136 x 240 beside its 480p row, the argmin kernels at
              the training shapes, with their winners and the gradients of
              the trainable Functions, kernel 4 with its key splits and
-             with exact ties across them (kernels 2 and 4 and kernel 4's
-             library call, a fraction of a millisecond each, timed over
-             runs of back-to-back calls); then one tiny round on the card
+             with exact ties across them (kernels 2, 4 and 5, kernel 4's
+             library call and kernel 3 at the batch's shape, a fraction of
+             a millisecond each, timed over runs of back-to-back calls);
+             then one tiny round on the card
              against the same round on the CPU;
 4. main    — the flagship ModelConfig() (ResNet-101, bf16, random weights
              from a seed) through `Evaluator.run_session` on a synthetic
@@ -333,35 +336,43 @@ def kernel_global(dev, nq: int, nk: int, c_real: int, c: int, o: int,
 
 
 def kernel_global_int8(dev, nq: int, nk: int, c_real: int, c: int, o: int,
-                       what: str):
+                       what: str, back_to_back: bool = False):
     """Kernel 3 at one of its paths' shapes: bf16 queries (the model's
-    embeddings) against an int8 reference of Nk rows, 2 live objects +
-    background in an O=4 bucket (the last object has no pixels). Times the
-    wrapper (per-row query quantization + kernel), the kernel alone, the
-    plain version and torch._int_mm over the cross term."""
+    embeddings, quantized per row in the kernel's prologue) against an
+    int8 reference of Nk rows, 2 live objects + background in an O=4
+    bucket (the last object has no pixels), with the key splits S the
+    wrapper plans. Times the wrapper (single calls; with `back_to_back`,
+    a launch of a fraction of a millisecond, over runs of back-to-back
+    calls, the single call logged beside), the plain version and
+    torch._int_mm over the cross term. The bound is the larger of the int8
+    products and the epilogue's floor on the CUDA cores."""
     from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
-        _int8_query, global_matching_int8_quantized,
-        global_matching_prepared_int8, global_matching_prepared_int8_plain,
-        prepare_ref_int8)
+        QUERY_TILE, _int8_query, _launch_int8, global_matching_prepared_int8,
+        global_matching_prepared_int8_plain, key_splits, prepare_ref_int8)
     g = torch.Generator().manual_seed(3)
     live = o - 1
     q, k, labels = global_inputs(g, nq, nk, c_real, c, live)
     q, k = q.to(dev, torch.bfloat16), k.to(dev, torch.bfloat16)
     onehot = torch.nn.functional.one_hot(labels, o).float().to(dev)
     b = prepare_ref_int8(k, onehot)
+    splits = key_splits(nq, b, dev)
     got = global_matching_prepared_int8(q, b)
     want = global_matching_prepared_int8_plain(q, b)
     torch.cuda.synchronize()
     err, share = check_outputs(f"int8 global matching ({what})", got, want,
                                live, TOL_INT8)
-    ms = time_ms(lambda: global_matching_prepared_int8(q, b))
-    q_hat, scales = _int8_query(q, b)
-    kernel_ms = time_ms(lambda: global_matching_int8_quantized(q_hat, scales,
-                                                               b))
+    kernel_fn = lambda: global_matching_prepared_int8(q, b)
+    call_ms = time_ms(kernel_fn)
+    ms = stream_ms(kernel_fn) if back_to_back else call_ms
+    # where the planner splits the key range, one walk gives the same bits
+    if splits > 1:
+        require(torch.equal(_launch_int8(q, b, 1), got),
+                f"int8 S = {splits} differs from S = 1")
     plain_ms = time_ms(lambda: global_matching_prepared_int8_plain(q, b),
                        reps=3, warmup=1)
     # the library's cross term on the same int8 rows (the reference rows
     # in their source order, the same products as the kernel's)
+    q_hat = _int8_query(q, b)[0]
     n_rows = int((b.src_idx >= 0).sum())       # labelled reference pixels
     k_hat = b.pixels[(b.src_idx >= 0).nonzero()[:, 0]][:n_rows // 8 * 8]
     require(torch.equal(torch._int_mm(q_hat[:64], k_hat.t()).float(),
@@ -369,21 +380,32 @@ def kernel_global_int8(dev, nq: int, nk: int, c_real: int, c: int, o: int,
             "torch._int_mm disagrees with the plain cross term")
     library_ms, chunks = cross_term_ms(torch._int_mm, q_hat, k_hat.t(), 4,
                                        reps=3)
-    b_ms, b_by = bound(2.0 * nq * n_rows * c, H100_INT8_OPS,
-                       nbytes(q, b.pixels, b.sqnorm, b.block_obj, got))
+    tc_ms, b_by = bound(2.0 * nq * n_rows * c, H100_INT8_OPS,
+                        nbytes(q, b.pixels, b.sqnorm, b.block_obj, got))
+    epi_ms = epilogue_ms(nq, b, INT8_LANE_OPS)
+    b_ms = max(tc_ms, epi_ms)
+    b_what = ("the int8 products" if tc_ms >= epi_ms
+              else "the epilogue on the CUDA cores")
+    timing = (f"{ms:.4f} ms over back-to-back calls ({call_ms:.4f} ms a "
+              f"single call)" if back_to_back else f"{ms:.3f} ms")
     log(f"[kernels] global_matching_int8 ({what}) Nq={nq} Nk={nk} (labelled "
         f"{n_rows}) C={c} O={o}, bf16 queries: {share:.3f} of live-object "
         f"outputs below 0.99 (min {MIN_UNSATURATED}), max|err|={err:.3g} "
-        f"(tol {TOL_INT8}: exact integer cross terms, the same f32 "
-        f"epilogue); wrapper (query quantization + kernel) {ms:.3f} ms, "
-        f"kernel alone {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, cross "
+        f"(tol {TOL_INT8}: the same quantized values, exact integer cross "
+        f"terms, the same f32 epilogue); S = {splits} key splits "
+        f"({-(-nq // QUERY_TILE)} query tiles"
+        f"{'; the same bits as S = 1' if splits > 1 else ''}); wrapper (the "
+        f"query quantized in the kernel) {timing}, plain {plain_ms:.3f} ms, cross "
         f"term only (torch._int_mm over {chunks} query chunks) "
-        f"{library_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}")
+        f"{library_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} ({b_what}; "
+        f"int8 tensor cores {tc_ms:.3f} ms, epilogue floor {epi_ms:.3f} ms "
+        f"at {INT8_LANE_OPS} lane operations per candidate)")
     return dict(name="global_matching_int8", route="cuda",
                 source="cvpr2020_manet_tpu_torch/csrc/global_matching.cu",
                 replaces="cvpr2020_manet_tpu/ops/matching_pallas.py:372",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, kernel_only_ms=kernel_ms)
+                bound_by=b_by, library_ms=library_ms, splits=splits,
+                epilogue_floor_ms=epi_ms, call_ms=call_ms)
 
 
 def kernel_local(dev, hw: tuple[int, int], c_real: int, c: int, o: int,
@@ -517,20 +539,24 @@ def sm_clock_hz() -> float:
     return float(mhz) * 1e6
 
 
-# Lane operations per candidate of the argmin epilogue: the add of |k|^2,
-# the compare, and the two selects of (min, row).
+# Lane operations per candidate of kernel 4's argmin epilogue: the add of
+# |k|^2, the compare, and the two selects of (min, row).
 ARGMIN_LANE_OPS = 4.5
+# ... and of kernel 3's epilogue: the integer add and the subtraction that
+# turn the int32 cross term into a float, the multiply, the add of |k|^2
+# and the min.
+INT8_LANE_OPS = 5
 
 
-def argmin_epilogue_ms(nq: int, b) -> float:
-    """The CUDA-core floor of kernel 4's argmin epilogue: ARGMIN_LANE_OPS
-    per candidate over Nq x the live k-blocks' rows (padding rows
-    included), on every f32 lane of the card at its maximum clock."""
+def epilogue_ms(nq: int, b, lane_ops: float) -> float:
+    """The CUDA-core floor of a global kernel's epilogue: `lane_ops` per
+    candidate over Nq x the live k-blocks' rows (padding rows included),
+    on every f32 lane of the card at its maximum clock."""
     live = int((b.block_obj < b.num_objects).sum())
     lanes = torch.cuda.get_device_properties(0).multi_processor_count \
         * H100_LANES_PER_SM
     cands = nq * live * b.sqnorm.shape[1]
-    return ARGMIN_LANE_OPS * cands / (lanes * sm_clock_hz()) * 1e3
+    return lane_ops * cands / (lanes * sm_clock_hz()) * 1e3
 
 
 def kernel_global_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
@@ -541,7 +567,7 @@ def kernel_global_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
     bound is the larger of the tensor cores' products and the argmin
     epilogue's floor on the CUDA cores."""
     from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
-        ARGMIN_BLOCKS_PER_SM, ARGMIN_QUERY_TILE, argmin_splits,
+        BLOCKS_PER_SM, QUERY_TILE, key_splits,
         global_matching_prepared_argmin,
         global_matching_prepared_argmin_plain, prepare_ref)
     from cvpr2020_manet_tpu_torch.ops.trainable import GlobalMatchingTrainable
@@ -553,12 +579,12 @@ def kernel_global_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
     q, k = q.to(dev, torch.bfloat16), k.to(dev, torch.bfloat16)
     onehot = torch.nn.functional.one_hot(labels, o).float().to(dev)
     b = prepare_ref(k, onehot)
-    splits = argmin_splits(nq, b, dev)
-    tiles = -(-nq // ARGMIN_QUERY_TILE)
+    splits = key_splits(nq, b, dev)
+    tiles = -(-nq // QUERY_TILE)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"[kernels] global_matching_argmin at the training shape: S = "
         f"{splits} key splits, grid {tiles} x {splits} = {tiles * splits} "
-        f"blocks ({ARGMIN_BLOCKS_PER_SM} resident per SM on {sms} SMs), "
+        f"blocks ({BLOCKS_PER_SM} resident per SM on {sms} SMs), "
         f"{int((b.block_obj < o).sum())} live of {b.block_obj.numel()} "
         f"k-blocks of {b.sqnorm.shape[1]} rows")
     got, got_idx = global_matching_prepared_argmin(q, b)
@@ -592,7 +618,7 @@ def kernel_global_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
     tc_ms, b_by = bound(2.0 * nq * n_rows * c, H100_BF16_FLOPS,
                         nbytes(q, b.neg2pixels, b.sqnorm, b.block_obj, got,
                                got_idx))
-    epi_ms = argmin_epilogue_ms(nq, b)
+    epi_ms = epilogue_ms(nq, b, ARGMIN_LANE_OPS)
     b_ms = max(tc_ms, epi_ms)
     b_what = ("the tensor cores' products" if tc_ms >= epi_ms
               else "the argmin epilogue on the CUDA cores")
@@ -627,8 +653,9 @@ def argmin_split_ties(dev, hw: tuple[int, int], c: int, o: int) -> None:
     each copy pair ties exactly; the winners must equal the plain
     version's everywhere, and at every tie be the lower bucketed row."""
     from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
-        argmin_splits, global_matching_prepared_argmin,
-        global_matching_prepared_argmin_plain, prepare_ref, split_ranges)
+        global_matching_prepared_argmin,
+        global_matching_prepared_argmin_plain, key_splits, prepare_ref,
+        split_ranges)
     g = torch.Generator().manual_seed(8)
     nk = nq = hw[0] * hw[1]
     live = o - 1
@@ -641,7 +668,7 @@ def argmin_split_ties(dev, hw: tuple[int, int], c: int, o: int) -> None:
     onehot = torch.nn.functional.one_hot(labels, o).float().to(dev)
     k = torch.randint(-2, 3, (nk, c), generator=g) * 0.25
     b = prepare_ref(k.to(dev, torch.bfloat16), onehot)
-    splits = argmin_splits(nq, b, dev)
+    splits = key_splits(nq, b, dev)
     block_k = b.sqnorm.shape[1]
     obj = b.block_obj.tolist()
     live_kb = [j for j, x in enumerate(obj) if x < o]
@@ -693,10 +720,13 @@ def kernel_local_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
                         o: int, window: int):
     """Kernel 5 at the training shape: the half-resolution 416 crop, f32,
     O = 9 with the last object pixel-less; winners, and the routed
-    gradients."""
+    gradients. As kernel 2's, its bound is 3 TF32 products per in-window
+    pair, with the computed pairs' and the f32 FMA bounds beside it."""
+    from cvpr2020_manet_tpu_torch.device import sm_count
     from cvpr2020_manet_tpu_torch.ops.local_matching_cuda import (
-        local_matching_prepared_argmin, local_matching_prepared_argmin_plain,
-        prepare_local)
+        ARGMIN_PATCH_ROWS, _launch, argmin_patch_rows,
+        local_matching_prepared_argmin,
+        local_matching_prepared_argmin_plain, prepare_local)
     from cvpr2020_manet_tpu_torch.ops.trainable import LocalMatchingTrainable
     g = torch.Generator().manual_seed(5)
     h, w = hw
@@ -723,19 +753,37 @@ def kernel_local_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
         lambda q, k, m: LocalMatchingTrainable.apply(q, k, onehot, window, m),
         local_matching_prepared_argmin, local_matching_prepared_argmin_plain,
         (q, k), upstream, got_idx == want_idx, TOL_GRAD_F32)
-    ms = time_ms(lambda: local_matching_prepared_argmin(*inputs, window))
+    # a launch is a fraction of a millisecond: timed over back-to-back
+    # calls (the device's time), a single call logged beside
+    kernel_fn = lambda: local_matching_prepared_argmin(*inputs, window)
+    ms, call_ms = stream_ms(kernel_fn), time_ms(kernel_fn)
+    # every patch height gives the planner's bits
+    for r in ARGMIN_PATCH_ROWS:
+        d, i = _launch(*inputs, window, argmin=True, rows=r)
+        require(torch.equal(d, got) and torch.equal(i, got_idx),
+                f"local argmin on {r}-row patches differs")
     plain_ms = time_ms(
         lambda: local_matching_prepared_argmin_plain(*inputs, window))
-    b_ms, b_by = bound(2.0 * window_pairs(h, w, window) * c, H100_F32_FLOPS,
-                       nbytes(*inputs, got, got_idx))
+    io = nbytes(*inputs, got, got_idx)
+    pairs = 2.0 * window_pairs(h, w, window) * c
+    b_ms, b_by = bound(3 * pairs, H100_TF32_FLOPS, io)
+    computed = 2.0 * computed_local_pairs(h, w, window) * c
+    computed_ms = bound(3 * computed, H100_TF32_FLOPS, io)[0]
+    fma_ms = bound(pairs, H100_F32_FLOPS, io)[0]
+    rows = argmin_patch_rows(h, w, sm_count(dev))
     log(f"[kernels] local_matching_argmin   {h}x{w} C={c} O={o} "
-        f"window={window} f32: {share:.3f} of live-object outputs below "
-        f"0.99, max|err|={err:.3g} (tol {TOL_LOCAL}); winners equal at all "
-        f"{clear_share:.4f} of live positions whose best beats the second "
-        f"best by > {TOL_LOCAL}; routed gradients kernel vs plain forward "
+        f"window={window} f32, patches of {rows} query rows (those of "
+        f"{ARGMIN_PATCH_ROWS} give the same bits): {share:.3f} of "
+        f"live-object outputs below 0.99, max|err|={err:.3g} (tol "
+        f"{TOL_LOCAL}: 3xTF32); winners equal at all {clear_share:.4f} of "
+        f"live positions whose best beats the second best by > "
+        f"{TOL_LOCAL}; routed gradients kernel vs plain forward "
         f"{grad_err:.3g} of the largest (tol {TOL_GRAD_F32}: index_add_ "
-        f"order); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, no single "
-        f"library call, bound {b_ms:.4f} ms by {b_by}")
+        f"order); kernel {ms:.4f} ms over back-to-back calls ({call_ms:.4f} "
+        f"ms a single call), plain {plain_ms:.3f} ms, no single library "
+        f"call, bound {b_ms:.4f} ms by {b_by} (3 TF32 products per "
+        f"in-window pair; the {computed / pairs:.2f}x pairs the kernel "
+        f"computes {computed_ms:.4f} ms; f32 FMA {fma_ms:.4f} ms)")
     return dict(name="local_matching_argmin", route="cuda",
                 source="cvpr2020_manet_tpu_torch/csrc/local_matching.cu",
                 replaces="cvpr2020_manet_tpu/ops/local_matching_pallas.py:78",
@@ -1372,6 +1420,14 @@ def train_phase(dev) -> dict[str, int]:
     return per_step
 
 
+# the port's kernel functions and the names of their template parameters
+TEMPLATE_PARAMS = {"global_matching_tf32": (),
+                   "global_matching_wgmma": ("argmin", "int8"),
+                   "global_matching_fma_argmin": (),
+                   "merge_splits": ("argmin",),
+                   "local_matching_tf32": ("OB", "argmin")}
+
+
 def ptxas_reports(text: str) -> list[tuple[str, str]]:
     """(kernel, "registers ..., spills ...") from a `ptxas -v` report."""
     out, fn, frame = [], "?", ""
@@ -1380,17 +1436,14 @@ def ptxas_reports(text: str) -> list[tuple[str, str]]:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             fn = m.group(1)
-            for short in ("global_matching_tf32", "global_matching_wgmma",
-                          "global_matching_fma_argmin", "argmin_merge",
-                          "global_matching_mma_int8", "local_matching_tf32",
-                          "local_matching_argmin_warp"):
+            for short, params in TEMPLATE_PARAMS.items():
                 at = fn.find(short)
-                if at >= 0:     # a template's instance: <argmin> / <min>, <OB>
-                    m = re.match(r"IL(b|i)(\d+)E", fn[at + len(short):])
-                    arg = "" if m is None else (
-                        ("<argmin>" if m.group(2) == "1" else "<min>")
-                        if m.group(1) == "b" else f"<{m.group(2)}>")
-                    fn = short + arg
+                if at >= 0:     # a template's instance: its arguments
+                    m = re.match(r"I((?:L[bi]\d+E)+)E", fn[at + len(short):])
+                    args = [] if m is None else re.findall(
+                        r"L[bi](\d+)E", m.group(1))
+                    fn = short + ("" if not args else "<" + ", ".join(
+                        f"{p}={a}" for p, a in zip(params, args)) + ">")
                     break
         elif "stack frame" in line:
             frame = line
@@ -1399,20 +1452,27 @@ def ptxas_reports(text: str) -> list[tuple[str, str]]:
     return out
 
 
-# kernel functions (a substring of the SASS function name) and the
+# kernel functions (a pattern of the SASS function name) and the
 # tensor-core instruction each must be built on
 ROUTES = (("global_matching_tf32", "HGMMA",
            "the f32 template (matching_tf32.cuh, kernels 1 f32 and 6)"),
-          ("global_matching_wgmmaILb0", "HGMMA", "kernel 1 bf16 (wgmma, min)"),
-          ("global_matching_wgmmaILb1", "HGMMA", "kernel 4 (wgmma, argmin)"),
-          ("local_matching_tf32", "HMMA", "kernel 2 (3xTF32 mma.sync)"))
+          ("global_matching_wgmmaILb0ELb0E", "HGMMA",
+           "kernel 1 bf16 (wgmma, min)"),
+          ("global_matching_wgmmaILb1ELb0E", "HGMMA",
+           "kernel 4 (wgmma, argmin)"),
+          ("global_matching_wgmmaILb0ELb1E", "IGMMA",
+           "kernel 3 (int8 wgmma, min)"),
+          (r"local_matching_tf32ILi\d+ELb0E", "HMMA",
+           "kernel 2 (3xTF32 mma.sync)"),
+          (r"local_matching_tf32ILi\d+ELb1E", "HMMA",
+           "kernel 5 (3xTF32 mma.sync, argmin)"))
 
 
 def sass_routes(build) -> None:
     """Which tensor-core route each tensor-core kernel was built on: its
-    wgmma (HGMMA) and mma.sync (HMMA) instructions in the SASS of the
-    built libraries (cuobjdump), and the dynamic shared memory of the f32
-    template and of kernel 2 at the main path's shape."""
+    wgmma (HGMMA; IGMMA for int8) and mma.sync (HMMA) instructions in the
+    SASS of the built libraries (cuobjdump), and the dynamic shared memory
+    of the f32 template and of kernel 2 at the main path's shape."""
     smem = build.kernel_function("global_matching",
                                  "manet_global_matching_tf32_smem", [])()
     local_smem = build.kernel_function(
@@ -1432,13 +1492,14 @@ def sass_routes(build) -> None:
         for f in out.split("Function : ")[1:]:
             sass[f.splitlines()[0].strip()] = f
     for key, instr, what in ROUTES:
-        fns = {n: f for n, f in sass.items() if key in n}
+        fns = {n: f for n, f in sass.items() if re.search(key, n)}
         require(len(fns) > 0, f"{what}: not found in the SASS")
         for name, f in fns.items():
-            wgmma, mma = f.count("HGMMA"), f.count("HMMA")
+            counts = ", ".join(f"{f.count(i)} {i}"
+                               for i in ("HGMMA", "IGMMA", "HMMA"))
             require(f.count(instr) > 0, f"{what} ({name}) has no {instr}")
-            log(f"[build] {what}: {wgmma} HGMMA and {mma} HMMA instructions "
-                f"in the SASS of {name[:60]}")
+            log(f"[build] {what}: {counts} instructions in the SASS of "
+                f"{name[:70]}")
 
 
 def main() -> int:
@@ -1460,6 +1521,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[device] TF32 off for matmuls and cuDNN: f32 comparisons run in f32")
+    # PyTorch divides a CUDA tensor by a Python number as a multiply by its
+    # reciprocal; the int8 quantizers divide by a tensor (IEEE, as JAX)
+    from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import _div127
+    x = 3 * torch.rand(1 << 20, generator=torch.Generator().manual_seed(6))
+    ieee = x / 127.0                                 # the CPU divides
+    off = int(((x.to(dev) / 127.0).cpu() != ieee).sum())
+    require(torch.equal(_div127(x.to(dev)).cpu(), ieee),
+            "the int8 quantizers' division differs from IEEE on the card")
+    log(f"[device] x / 127.0 on the card differs from IEEE division in "
+        f"{off} of {x.numel()} values; the int8 quantizers' division "
+        f"(_div127) equals it")
 
     # [2] build
     secs = build.build_all()
@@ -1492,9 +1564,19 @@ def main() -> int:
         dev, (136, 240), 100, 128, 4, 15, "1080p stream, 1 launch per observe")
     for name, page in pages.items():
         log(f"[kernels] {name} at the 1080p stream's shape: " + json.dumps(
-            {k: page[k] for k in ("max_abs_err", "ms", "kernel_only_ms",
-                                  "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms") if k in page}))
+            {k: page[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "splits", "epilogue_floor_ms")
+             if k in page}))
+    # the batch engine's launch: one 480p frame's queries against its
+    # clip's frame 0, where the query tiles alone do not fill the card
+    batch_launch = kernel_global_int8(
+        dev, 120 * 216, 120 * 216, 100, 128, 4,
+        "batch launch: one 480p frame against frame 0", back_to_back=True)
+    log("[kernels] global_matching_int8 at the batch engine's shape: "
+        + json.dumps({k: batch_launch[k] for k in (
+            "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "splits", "epilogue_floor_ms")}))
     tiny_round_reference()
     torch.cuda.empty_cache()
 

@@ -14,15 +14,19 @@ constexpr float kBig = 1e8f;
 
 constexpr int O_MAX = 16;      // objects per accumulator row
 
-// Fold (v, i) with the lane `mask` away: the smaller value, and of equal
-// values the lower row (-1, no row yet, counts as the highest).
-__device__ __forceinline__ void argmin_xor(float& v, int& i, int mask) {
-  const float ov = __shfl_xor_sync(0xffffffffu, v, mask);
-  const int oi = __shfl_xor_sync(0xffffffffu, i, mask);
+// Fold (ov, oi) into (v, i): the smaller value, and of equal values the
+// lower row (-1, no row yet, counts as the highest).
+__device__ __forceinline__ void argmin_fold(float& v, int& i, float ov, int oi) {
   if (ov < v || (ov == v && static_cast<unsigned>(oi) < static_cast<unsigned>(i))) {
     v = ov;
     i = oi;
   }
+}
+
+// argmin_fold with the lane `mask` away.
+__device__ __forceinline__ void argmin_xor(float& v, int& i, int mask) {
+  argmin_fold(v, i, __shfl_xor_sync(0xffffffffu, v, mask),
+              __shfl_xor_sync(0xffffffffu, i, mask));
 }
 
 // Keep the candidate `c` of bucketed row `row` if it is below the running
@@ -51,13 +55,6 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 }  // namespace manet

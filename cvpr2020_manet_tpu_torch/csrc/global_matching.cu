@@ -15,8 +15,8 @@
 // The TPU grid's sequential k axis becomes a loop inside the block: a
 // block owns a tile of queries and walks every k-block; each key tile is
 // folded into a running row-min right away and, at the end of its object
-// (or, in the f32 and int8 kernels, of its k-block), into the query's
-// result. The distance matrix never reaches device memory.
+// (or, in the f32 kernel, of its k-block), into the query's result. The
+// distance matrix never reaches device memory.
 //
 // Bound on an H100: the cross term is 2 Nq Nk C operations against
 // Nq C + Nk C input elements, far above the card's ridge point, so the
@@ -35,70 +35,81 @@
 // when the object's last block is done (over the prefilled empty-object
 // answer); no (queries, O) accumulator in shared memory is needed.
 //
-// The bf16 argmin kernel (kernel 4, training) splits the key range and
-// runs on `wgmma`. At the training shape (Nq = Nk = 10,816) one block per
-// query tile would leave most of the card idle and walk 24 live k-blocks
-// one after another, so the wrapper launches a 2-D grid of query tiles x S
-// splits (`splits`, chosen from the SM count), each split owning a
-// contiguous run of the live k-blocks (live ordinals [s L / S, (s + 1) L /
-// S), L counted on the device). A split writes one partial (min, row) per
-// (query, object) into the scratch buffer, (1e8, -1) for an object it does
-// not touch, and `argmin_merge` folds the S partials in ascending split
-// order with a strict <, so that the lowest bucketed row wins ties across
-// splits as within one (the TPU kernel's `dmin < acc` over its k-blocks),
-// then adds |q|^2, clamps and normalizes. With S = 1 the kernel writes
-// `out` / `idx` itself. Bound on an H100: the tensor cores' products (989
-// TFLOP/s bf16), with the argmin epilogue (about 4-5 lane operations per
-// candidate: add, compare, two selects) on the CUDA cores close behind;
-// two resident blocks of two warpgroups per SM overlap one block's
-// epilogue with the other's products.
+// Key splits. Where the query tiles alone would leave most of the card
+// idle (kernel 4 at the training shape, Nq = Nk = 10,816; kernel 3 in the
+// batch, Nq = 25,920), the wrapper launches a 2-D grid of query tiles x S
+// splits (`splits`, from the SM count by `plan_splits` in
+// ops/global_matching_cuda.py: one wave of blocks where the query tiles
+// leave room for two splits or more, else two blocks per resident slot),
+// each split owning a contiguous run of the live k-blocks (live ordinals
+// [s L / S, (s + 1) L / S), L counted on the device). A split writes one partial minimum (with
+// ARGMIN, (min, row)) per (query, object) into the scratch buffer, 1e8
+// (and -1) for an object it does not touch, and `merge_splits` folds the
+// S partials in ascending split order with a strict <, so that the lowest
+// bucketed row wins ties across splits as within one (the TPU kernel's
+// `dmin < acc` over its k-blocks), then adds |q|^2, clamps and
+// normalizes. With S = 1 the kernel writes `out` (/ `idx`) itself.
 //
-// Four variants:
-// - bf16 with C = 128 (the model's path, kernel 1): the kernel-4 mainloop
-//   below with a min-only epilogue (`global_matching_wgmma<false>`) and
-//   128-key tiles (`wgmma.m64n128k16`, a 3-stage ring), the queries' A
-//   fragments in registers: the running minimum of the current object
-//   stays in registers, one block per query tile, no key split (the
-//   round's 388,800 queries give some 3,000 query tiles). Bound: the products (989 TFLOP/s bf16); the min epilogue (an
-//   add and a min per pair on the CUDA cores) comes to about a quarter of
-//   it. Its earlier route, `mma.sync.m16n8k16`, stays near 30% of the
-//   bf16 peak however many warps an SM holds; this one reaches about half
-//   of it at the round's shape, where the products, the key tiles' loads
-//   through L2 (Nq / 128 passes over the keys, 20 GB) and the epilogue
-//   each take a large share of the time and overlap only in part.
-// - bf16 argmin (kernel 4): the same mainloop with the argmin epilogue
-//   (`global_matching_wgmma<true>`), split key range, merge in key order
-//   (above).
+// Five variants, the first three on one `wgmma` template
+// (`global_matching_wgmma<ARGMIN, INT8>`: a block of two warpgroups owns
+// 128 queries held as A fragments in registers, a cp.async ring of key
+// tiles in the 128-byte swizzle that the B descriptor reads, the running
+// minimum of the current object in registers, two resident blocks per SM
+// so that one block's epilogue overlaps the other's products):
+// - bf16 with C = 128 (the model's path, kernel 1): the min epilogue
+//   (`<false, false>`) on 128-key tiles (`wgmma.m64n128k16`, a 3-stage
+//   ring), no key split (the round's 388,800 queries give some 3,000
+//   query tiles). Bound: the products (989 TFLOP/s bf16); the min
+//   epilogue (an add and a min per pair on the CUDA cores) comes to about
+//   a quarter of it. At the round's shape it reaches about half of the
+//   bf16 peak: the products, the key tiles' loads through L2 (Nq / 128
+//   passes over the keys, 20 GB) and the epilogue each take a large share
+//   of the time and overlap only in part.
+// - bf16 argmin (kernel 4): the argmin epilogue (`<true, false>`) on
+//   64-key tiles (`wgmma.m64n64k16`, 4 stages), split key range. Bound:
+//   the products, with the argmin epilogue (about 4-5 lane operations per
+//   candidate: add, compare, two selects) close behind.
+// - int8 (kernel 3, `<false, true>`, entry `manet_global_matching_int8`):
+//   replaces the TPU kernel `_matching_kernel_int8` (called by
+//   `global_matching_prepared_int8`, the opt-in int8 serving mode). Query
+//   rows q^ and keys k^ are symmetric int8 (per-row query scales s_q, one
+//   key scale s_k); `sqnorm` holds s_k^2 |k^|^2, so
+//
+//     e = float(q^.k^) * (-2 s_q s_k) + sqnorm,   d = min_k e + float(|q^|^2) * s_q^2
+//
+//   is the exact f32 distance between the dequantized vectors. The launch
+//   takes the float query (bf16 or f32, C <= 128): the prologue quantizes
+//   each row as `quantize_rows_int8` does, bit for bit (the row's amax over
+//   the quad's lanes, s_q = max(amax, 1e-6) / 127 and x / s_q by IEEE
+//   division, ties to even, clamped to +-127, zeros past channel C), forms
+//   the A fragments and |q^|^2 (dp4a) in registers, and rounds the scales
+//   -2 s_q s_k and s_q^2 in the plain version's order. A 128-channel int8
+//   key row is 128 bytes, so a 128-key tile is one swizzle atom, and the
+//   descriptor steps 32 bytes per `wgmma.m64n128k32.s32.s8.s8` (4 steps, a
+//   4-stage ring). The cross term is exact in int32 and below
+//   128 * 127^2 = 2,064,512 < 2^22 in magnitude, so adding the bits of the
+//   float 1.5 * 2^23 to it (an integer add) gives the bits of the float
+//   1.5 * 2^23 + cross, and one exact subtraction gives float(cross)
+//   without the slower int-to-float conversion. (Preloading the
+//   accumulators with those bits and accumulating from the first step is
+//   the same arithmetic; its 64 moves a tile timed slower.) The
+//   epilogue's multiply and add are rounded separately (__fmul_rn,
+//   __fadd_rn, no FMA contraction), in the order of the plain version, so
+//   kernel and plain version differ only in the exp of the normalization.
+//   Bound: the int8 products (1,979 TOP/s dense), with the epilogue (add,
+//   subtract, multiply, add, min per pair: 5 lane operations) on the CUDA
+//   cores a little longer; the two overlap only in part across the SM's
+//   two blocks (products alone and epilogue alone each take about half of
+//   the kernel's time).
 // - f32 (the f32 stream's memory, the tiny test config): 3xTF32 on the
 //   tensor cores through `wgmma` (matching_tf32.cuh, shared with the ring
 //   step of ring_matching.cu).
 // - f32 argmin (f32 test configurations only): FMA on the CUDA cores, 64
 //   queries x 64 keys per tile, 4 x 4 outputs per thread.
-//
-// The int8 kernel (entry `manet_global_matching_int8`) replaces the TPU
-// kernel `_matching_kernel_int8` (called by `global_matching_prepared_int8`,
-// the opt-in int8 serving mode). Query rows q^ and keys k^ are symmetric
-// int8 (per-row query scales s_q, one key scale s_k); `sqnorm` holds
-// s_k^2 |k^|^2 and `scales` per query row [-2 s_q s_k, s_q^2], so
-//
-//   e = float(q^.k^) * scales[0] + sqnorm,   d = min_k e + float(|q^|^2) * scales[1]
-//
-// is the exact f32 distance between the dequantized vectors. It runs on
-// `mma.sync.m16n8k32` (int8 in, int32 accumulate): a block of 4 warps owns
-// 128 queries, each warp the A fragments of 32 in registers, and 128-key
-// tiles (an int8 row of 128 channels is 128 bytes) stream through shared
-// memory with cp.async, double-buffered. The cross term is
-// exact in int32, and below 128 * 127^2 = 2,064,512 < 2^22 in magnitude, so
-// the accumulators start at the bits of the float 1.5 * 2^23: the sum then
-// reads as the float 1.5 * 2^23 + cross, and one exact subtraction gives
-// float(cross) without the slower int-to-float conversion. The epilogue's
-// multiply and add are rounded separately (__fmul_rn, __fadd_rn, no FMA
-// contraction), in the order of the plain version, so kernel and plain
-// version differ only in the exp of the normalization. Bound on an H100:
-// operations (1,979 TOP/s int8 dense); at these shapes the f32 epilogue per
-// (query, key) pair costs about as much issue time as the products.
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "matching_tf32.cuh"
@@ -109,13 +120,7 @@ using manet::argmin_xor;
 using manet::keep_min;
 using manet::O_MAX;
 
-// ------------------------------------------------------------ tensor cores
-
-constexpr int MMA_C = 128;                 // channels (the padded embedding)
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_ROWS = 32;               // queries per warp (2 m16 tiles)
-constexpr int MMA_TQ = MMA_WARPS * MMA_ROWS;
-constexpr int MMA_KSTEPS = MMA_C / 16;
+constexpr int C_PAD = 128;                 // channels of a key row (the padded embedding)
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -123,9 +128,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 // First block at or after kb that holds an object (slack blocks skipped).
@@ -156,7 +158,7 @@ __device__ void split_range(const int* __restrict__ block_obj, int nkb,
   }
 }
 
-// ------------------- bf16 on wgmma: kernel 1 (min) and kernel 4 (argmin)
+// ------------ wgmma: kernels 1 (bf16 min), 4 (bf16 argmin), 3 (int8 min)
 
 // Warpgroups per block, m64 each: 2, two blocks an SM. (A block of 4
 // warpgroups, one an SM, halves the keys' L2 traffic but timed no faster
@@ -164,25 +166,48 @@ __device__ void split_range(const int* __restrict__ block_obj, int nkb,
 constexpr int AW_WG = 2;
 constexpr int AW_BM = 64 * AW_WG;          // queries per block
 constexpr int AW_THREADS = 128 * AW_WG;
-// Keys per tile (divides block_k): kernel 4 64, kernel 1 128, which halves
-// the tile's fixed costs (barrier, walk, waits) per key.
+// Keys per tile (divides block_k): kernel 4 64, kernels 1 and 3 128, which
+// halves the tile's fixed costs (barrier, walk, waits) per key.
 __host__ __device__ constexpr int aw_bn(bool argmin) { return argmin ? 64 : 128; }
 
-// The ring of a BN-key tile width, in shared memory from a 1024-byte
-// aligned base: each stage's two swizzle atoms (128 channels), then each
-// stage's |k|^2.
-template <int BN>
-struct AwRing {
-  static constexpr int STAGES = BN == 64 ? 4 : 3;   // key tiles in flight
-  static constexpr int ATOM = BN * 128;             // BN keys x 64 channels (128 B rows)
-  static constexpr int OFF_SQ = STAGES * 2 * ATOM;
+// The constants of one variant. The ring sits in shared memory from a
+// 1024-byte aligned base: each stage's ROW / 128 swizzle atoms (BN keys x
+// 128 bytes each: 64 bf16 or 128 int8 channels), then each stage's |k|^2.
+template <bool ARGMIN, bool INT8>
+struct Aw {
+  static constexpr int BN = aw_bn(ARGMIN);
+  static constexpr int ROW = INT8 ? C_PAD : 2 * C_PAD;   // bytes of a key row
+  static constexpr int KSTEPS = ROW / 32;                 // k-steps of 32 bytes
+  static constexpr int STAGES = BN == 64 || INT8 ? 4 : 3; // key tiles in flight
+  static constexpr int ATOM = BN * 128;
+  static constexpr int STAGE = ROW / 128 * ATOM;
+  static constexpr int OFF_SQ = STAGES * STAGE;
   static constexpr int SMEM = OFF_SQ + STAGES * BN * 4 + 1024;   // + alignment
+  using Acc = std::conditional_t<INT8, int, float>;
+};
+
+// The template's arguments.
+struct AwArgs {
+  const void* query;      // kernels 1, 4: bf16 (nq, 128); kernel 3: bf16 or f32 (nq, c)
+  const void* keys;       // -2k bf16 or k^ int8, (nkb * block_k, 128)
+  const float* sqnorm;    // (nkb, block_k)
+  const int* block_obj;   // (nkb,)
+  const float* key_scale; // kernel 3: s_k, ()
+  float* out;             // (nq, num_obj)
+  int* idx;               // ARGMIN: (nq, num_obj)
+  float* part_v;          // key splits (nullptr: none): (gridDim.y, nq, num_obj)
+  int* part_i;            // partial minima, with ARGMIN their rows, and the
+  float* part_qn;         // (nq,) |q|^2 from split 0
+  int64_t nq;
+  int nkb, block_k, num_obj;
+  int c, q_bf16, q_vec;   // kernel 3's query: channels, bf16 (else f32), rows of
+                          // 128 channels on a 16-byte aligned base
 };
 
 // d = A (64 x 16, registers) * B (64 x 16)^T (+ d if `accumulate`), bf16
 // in, f32 sums; B K-major in the 128-byte swizzle
-__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t b, int accumulate) {
+__device__ __forceinline__ void tile_mma(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -202,9 +227,9 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// As wgmma_bf16_rs with B 128 keys wide (m64n128k16)
-__device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                                   uint64_t b, int accumulate) {
+// As above with B 128 keys wide (m64n128k16)
+__device__ __forceinline__ void tile_mma(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -232,14 +257,154 @@ __device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// The tile's product for one k16 step, B BN keys wide
-__device__ __forceinline__ void tile_mma(float (&d)[32], const uint32_t (&a)[4],
+// d = A (64 x 32, registers) * B (128 x 32)^T (+ d if `accumulate`), int8
+// in, int32 sums (m64n128k32; the integer form has no scale or transpose)
+__device__ __forceinline__ void tile_mma(int (&d)[64], const uint32_t (&a)[4],
                                          uint64_t b, int accumulate) {
-  wgmma_bf16_rs(d, a, b, accumulate);
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
-__device__ __forceinline__ void tile_mma(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t b, int accumulate) {
-  wgmma_bf16_rs_n128(d, a, b, accumulate);
+
+// Keep the compiler from moving accumulator accesses across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+constexpr int I8_MAGIC = 0x4B400000;        // the bits of the float 1.5 * 2^23
+constexpr float I8_MAGIC_F = 12582912.f;    // 1.5 * 2^23
+
+// A pair's candidate from its accumulator: bf16, the cross term (of -2k)
+// plus |k|^2; int8, e = float(cross) * sc + kn from the int32 cross term
+__device__ __forceinline__ float candidate(float acc, float, float kn) { return acc + kn; }
+__device__ __forceinline__ float candidate(int acc, float sc, float kn) {
+  const float cross = __fsub_rn(__int_as_float(acc + I8_MAGIC), I8_MAGIC_F);
+  return __fadd_rn(__fmul_rn(cross, sc), kn);
+}
+
+// Kernels 1 and 4: the A fragments of this thread's rows (g, g + 8 of its
+// warp's 16; the mma.m16n8k16 layout, 16 channels a k-step) straight from
+// the bf16 query, and their |q|^2 over the quad.
+__device__ __forceinline__ void bf16_fragments(const AwArgs& p, const int64_t (&rows)[2],
+                                               int t, uint32_t (&a)[8][4], float (&qn)[2]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint32_t* src = static_cast<const uint32_t*>(p.query) + rows[half] * C_PAD / 2;
+    qn[half] = 0.f;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const uint32_t lo = rows[half] < p.nq ? src[s * 8 + t] : 0u;       // cols 2t, 2t+1
+      const uint32_t hi = rows[half] < p.nq ? src[s * 8 + 4 + t] : 0u;   // cols 2t+8, 2t+9
+      a[s][half] = lo;
+      a[s][2 + half] = hi;
+      const float2 lf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lo));
+      const float2 hf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+      qn[half] += lf.x * lf.x + lf.y * lf.y + hf.x * hf.x + hf.y * hf.y;
+    }
+    qn[half] += __shfl_xor_sync(0xffffffffu, qn[half], 1);
+    qn[half] += __shfl_xor_sync(0xffffffffu, qn[half], 2);
+  }
+}
+
+// Channels ch .. ch + 3 of query row `row` of kernel 3 as floats (zeros
+// past the row's c channels and past the last row).
+__device__ __forceinline__ void query4(const AwArgs& p, int64_t row, int ch, float (&x)[4]) {
+  x[0] = x[1] = x[2] = x[3] = 0.f;
+  if (row >= p.nq) return;
+  if (p.q_vec && p.q_bf16) {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(p.query) + row * C_PAD + ch);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    x[0] = lo.x, x[1] = lo.y, x[2] = hi.x, x[3] = hi.y;
+  } else if (p.q_vec) {
+    const float4 f = *reinterpret_cast<const float4*>(
+        static_cast<const float*>(p.query) + row * C_PAD + ch);
+    x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (ch + i >= p.c) break;
+      const int64_t at = row * p.c + ch + i;
+      x[i] = p.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.query)[at])
+                      : static_cast<const float*>(p.query)[at];
+    }
+  }
+}
+
+// Kernel 3's prologue: this thread's rows (g, g + 8) quantized as
+// `quantize_rows_int8` (ops/global_matching_cuda.py) quantizes them, bit
+// for bit, into the A fragments (the mma.m16n8k32 layout: 32 channels a
+// k-step; the quad's 4 lanes hold a row's 128 channels), the cross-term
+// scale sc = (-2 s_q) s_k and qn = float(|q^|^2) s_q^2.
+__device__ __forceinline__ void int8_fragments(const AwArgs& p, const int64_t (&rows)[2],
+                                               int t, uint32_t (&a)[4][4], float (&sc)[2],
+                                               float (&qn)[2]) {
+  const float s_k = *p.key_scale;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float x[4][2][4];   // [k-step][bytes 4t.., 16 + 4t..][channel]
+    float amax = 0.f;
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        query4(p, rows[half], s * 32 + j * 16 + 4 * t, x[s][j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) amax = fmaxf(amax, fabsf(x[s][j][i]));
+      }
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+    const float s_q = __fdiv_rn(fmaxf(amax, 1e-6f), 127.f);
+    int sq = 0;
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int v = __float2int_rn(__fdiv_rn(x[s][j][i], s_q));   // ties to even
+          word |= static_cast<uint32_t>(min(127, max(-127, v)) & 0xff) << (8 * i);
+        }
+        a[s][2 * j + half] = word;
+        sq = __dp4a(static_cast<int>(word), static_cast<int>(word), sq);
+      }
+    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+    sc[half] = __fmul_rn(__fmul_rn(-2.f, s_q), s_k);
+    qn[half] = __fmul_rn(static_cast<float>(sq), __fmul_rn(s_q, s_q));
+  }
 }
 
 // The wgmma kernel's walk over its BN-key tiles: the live k-blocks of
@@ -261,37 +426,30 @@ struct TileWalk {
   }
 };
 
-// Kernels 1 (bf16, ARGMIN false) and 4 (ARGMIN true). A block of
-// two warpgroups owns 128 queries, held as wgmma A fragments
-// in registers (each warp 16 rows x 128 channels, the mma.m16n8k16
-// layout), and walks its split's live k-blocks in BN-key tiles (64 for
-// kernel 4, 128 for kernel 1): cp.async streams each tile of -2k (in the
-// 128-byte swizzle that the B descriptor reads) and its |k|^2 through a
-// ring of 4 (3) stages, which all warpgroups read, 8 `wgmma.m64nBNk16`
-// per warpgroup form the tile's cross terms,
-// and the epilogue folds the candidates into the running minimum of the
-// object (with ARGMIN: in ascending row order, the running (min, row)),
-// held in registers because an object's blocks are consecutive; at the
-// object's last tile the quad reduces it and its lane 0 writes it. With
-// `part_v` set (ARGMIN only), the block is split blockIdx.y of gridDim.y
-// and writes its partial (min, row) per (query, object) to part_v /
-// part_i (gridDim.y, nq, num_obj), (1e8, -1) for an object it does not
-// touch, and split 0 writes |q|^2 to `part_qn` (nq,); without, it writes
-// `out` (/ `idx`). Two blocks share an SM, so one block's epilogue
-// overlaps the other's products; a key tile feeds 128 queries, which
-// halves the keys' traffic from L2 against 64.
-template <bool ARGMIN>
+// Kernels 1 (bf16 min: ARGMIN false, INT8 false), 4 (bf16 argmin: ARGMIN)
+// and 3 (int8 min: INT8). A block of two warpgroups owns 128 queries, held
+// as wgmma A fragments in registers (each warp 16 rows x 128 channels),
+// and walks its split's live k-blocks in BN-key tiles: cp.async streams
+// each tile of keys (in the 128-byte swizzle that the B descriptor reads)
+// and its |k|^2 through a ring of STAGES stages, which all warpgroups read,
+// KSTEPS `wgmma.m64nBNk16` (bf16) or `wgmma.m64n128k32` (int8) per
+// warpgroup form the tile's cross terms, and the epilogue folds the candidates into the running minimum of
+// the object (with ARGMIN: in ascending row order, the running (min,
+// row)), held in registers because an object's blocks are consecutive; at
+// the object's last tile the quad reduces it and its lane 0 writes it.
+// With `part_v` set, the block is split blockIdx.y of gridDim.y and writes
+// its partial minimum (with ARGMIN, (min, row)) per (query, object) to
+// part_v (/ part_i) (gridDim.y, nq, num_obj), 1e8 (and -1) for an object
+// it does not touch, and split 0 writes |q|^2 to `part_qn` (nq,); without,
+// it writes `out` (/ `idx`). Two blocks share an SM, so one block's
+// epilogue overlaps the other's products; a key tile feeds 128 queries,
+// which halves the keys' traffic from L2 against 64.
+template <bool ARGMIN, bool INT8>
 __global__ void __launch_bounds__(AW_THREADS, 2)
-global_matching_wgmma(const __nv_bfloat16* __restrict__ query,
-                             const __nv_bfloat16* __restrict__ neg2,
-                             const float* __restrict__ sqnorm,
-                             const int* __restrict__ block_obj,
-                             float* __restrict__ out, int* __restrict__ idx,
-                             float* __restrict__ part_v, int* __restrict__ part_i,
-                             float* __restrict__ part_qn, int64_t nq, int nkb,
-                             int block_k, int num_obj) {
-  constexpr int BN = aw_bn(ARGMIN);
-  using Ring = AwRing<BN>;
+global_matching_wgmma(const AwArgs p) {
+  static_assert(!(ARGMIN && INT8), "the int8 kernel has no argmin variant");
+  using K = Aw<ARGMIN, INT8>;
+  constexpr int BN = K::BN;
   using Walk = TileWalk<BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -303,128 +461,124 @@ global_matching_wgmma(const __nv_bfloat16* __restrict__ query,
   const int g = lane >> 2, t = lane & 3;
   const int64_t q0 = static_cast<int64_t>(blockIdx.x) * AW_BM;
   const int64_t rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int64_t nq = p.nq;
+  const int num_obj = p.num_obj;
 
-  // A fragments of this warp's 16 queries, and their |q|^2
-  uint32_t a[MMA_KSTEPS][4];
-  float qsq[2] = {0.f, 0.f};
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const uint32_t* src = reinterpret_cast<const uint32_t*>(query + rows[half] * MMA_C);
-#pragma unroll
-    for (int s = 0; s < MMA_KSTEPS; ++s) {
-      const uint32_t lo = rows[half] < nq ? src[s * 8 + t] : 0u;       // cols 2t, 2t+1
-      const uint32_t hi = rows[half] < nq ? src[s * 8 + 4 + t] : 0u;   // cols 2t+8, 2t+9
-      a[s][half] = lo;
-      a[s][2 + half] = hi;
-      const float2 lf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lo));
-      const float2 hf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
-      qsq[half] += lf.x * lf.x + lf.y * lf.y + hf.x * hf.x + hf.y * hf.y;
-    }
-    qsq[half] += __shfl_xor_sync(0xffffffffu, qsq[half], 1);
-    qsq[half] += __shfl_xor_sync(0xffffffffu, qsq[half], 2);
-  }
+  // A fragments of this warp's 16 queries, their |q|^2 (int8: s_q^2
+  // |q^|^2) and, for int8, their cross-term scales
+  uint32_t a[K::KSTEPS][4];
+  float qn[2], sc[2] = {0.f, 0.f};
+  if constexpr (INT8)
+    int8_fragments(p, rows, t, a, sc, qn);
+  else
+    bf16_fragments(p, rows, t, a, qn);
 
   // this block's k-blocks, and the empty-object answer (or partial)
   // prefilled by the quad's lane 0, which also writes the row's results
   // later (same thread, program order)
-  int kb_lo = 0, kb_hi = nkb;
-  if (ARGMIN && part_v != nullptr) {
-    split_range(block_obj, nkb, num_obj, blockIdx.y, gridDim.y, kb_lo, kb_hi);
+  int kb_lo = 0, kb_hi = p.nkb;
+  float* part_v = p.part_v;
+  int* part_i = p.part_i;
+  if (part_v != nullptr) {
+    split_range(p.block_obj, p.nkb, num_obj, blockIdx.y, gridDim.y, kb_lo, kb_hi);
     const int64_t off = static_cast<int64_t>(blockIdx.y) * nq * num_obj;
     part_v += off;
-    part_i += off;
+    if (ARGMIN) part_i += off;
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int64_t row = rows[half];
     if (t != 0 || row >= nq) continue;
-    if (ARGMIN && part_v != nullptr) {
-      if (blockIdx.y == 0) part_qn[row] = qsq[half];
+    if (part_v != nullptr) {
+      if (blockIdx.y == 0) p.part_qn[row] = qn[half];
       for (int o = 0; o < num_obj; ++o) {
         part_v[row * num_obj + o] = manet::kBig;
-        part_i[row * num_obj + o] = -1;
+        if (ARGMIN) part_i[row * num_obj + o] = -1;
       }
     } else {
       for (int o = 0; o < num_obj; ++o) {
-        out[row * num_obj + o] = manet::finish_distance(manet::kBig, qsq[half]);
-        if (ARGMIN) idx[row * num_obj + o] = -1;
+        p.out[row * num_obj + o] = manet::finish_distance(manet::kBig, qn[half]);
+        if (ARGMIN) p.idx[row * num_obj + o] = -1;
       }
     }
   }
 
-  // stage tile `w` into `stage`: BN rows x 16 chunks of 16 bytes, and its
-  // BN |k|^2
+  // stage tile `w` into `stage`: BN rows x ROW / 16 chunks of 16 bytes,
+  // and its BN |k|^2
   auto load = [&](int stage, const Walk& w) {
-    const int64_t k0 = static_cast<int64_t>(w.kb) * block_k + w.kt;
-    uint8_t* dst = smem + stage * 2 * Ring::ATOM;
+    const int64_t k0 = static_cast<int64_t>(w.kb) * p.block_k + w.kt;
+    const uint8_t* src = static_cast<const uint8_t*>(p.keys) + k0 * K::ROW;
+    uint8_t* dst = smem + stage * K::STAGE;
 #pragma unroll
-    for (int i = 0; i < BN * 16 / AW_THREADS; ++i) {
-      const int p = tid + i * AW_THREADS, r = p >> 4, j = p & 15;
-      cp_async16(dst + (j >> 3) * Ring::ATOM + manet::swizzle128(r, j & 7),
-                 neg2 + (k0 + r) * MMA_C + j * 8);
+    for (int i = 0; i < BN * (K::ROW / 16) / AW_THREADS; ++i) {
+      const int c = tid + i * AW_THREADS, r = c / (K::ROW / 16), j = c % (K::ROW / 16);
+      cp_async16(dst + (j >> 3) * K::ATOM + manet::swizzle128(r, j & 7),
+                 src + r * K::ROW + j * 16);
     }
     if (tid < BN / 4)
-      cp_async16(smem + Ring::OFF_SQ + (stage * BN + tid * 4) * 4, sqnorm + k0 + tid * 4);
+      cp_async16(smem + K::OFF_SQ + (stage * BN + tid * 4) * 4, p.sqnorm + k0 + tid * 4);
   };
 
-  Walk cur{block_obj, kb_hi, block_k, num_obj, kb_lo, 0};
+  Walk cur{p.block_obj, kb_hi, p.block_k, num_obj, kb_lo, 0};
   cur.skip_slack();
   Walk ahead = cur;
-  for (int i = 0; i < Ring::STAGES - 1; ++i) {
+  for (int i = 0; i < K::STAGES - 1; ++i) {
     if (!ahead.done()) {
       load(i, ahead);
       ahead.next();
     }
     cp_async_commit();
   }
-  float d[BN / 2] = {};
+  typename K::Acc d[BN / 2] = {};
   float rmin[2] = {manet::kBig, manet::kBig};
   int rarg[2] = {-1, -1};
   for (int it = 0; !cur.done(); ++it) {
-    const int stage = it % Ring::STAGES;
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(Ring::STAGES - 2));   // this tile landed
+    const int stage = it % K::STAGES;
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(K::STAGES - 2));   // this tile landed
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();   // and every thread is done with the stage refilled here
     if (!ahead.done()) {
-      load((it + Ring::STAGES - 1) % Ring::STAGES, ahead);
+      load((it + K::STAGES - 1) % K::STAGES, ahead);
       ahead.next();
     }
     cp_async_commit();
 
-    const uint32_t b = base + stage * 2 * Ring::ATOM;
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    const uint32_t b = base + stage * K::STAGE;
+    fence_acc(d);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int s = 0; s < MMA_KSTEPS; ++s)   // 16 channels = 32 bytes a step
-      tile_mma(d, a[s], manet::sw128_desc(b + (s >> 2) * Ring::ATOM + (s & 3) * 32), s > 0);
+    for (int s = 0; s < K::KSTEPS; ++s)   // 32 bytes a step
+      tile_mma(d, a[s], manet::sw128_desc(b + (s >> 2) * K::ATOM + (s & 3) * 32), s > 0);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    fence_acc(d);
 
-    // candidates cross + |k|^2 of columns 8i + 2t, 8i + 2t + 1 (with
-    // ARGMIN in ascending row order)
-    const float* sq = reinterpret_cast<const float*>(smem + Ring::OFF_SQ) + stage * BN;
-    const int col = cur.kb * block_k + cur.kt + 2 * t;
+    // candidates of columns 8i + 2t, 8i + 2t + 1 (with ARGMIN in
+    // ascending row order)
+    const float* sq = reinterpret_cast<const float*>(smem + K::OFF_SQ) + stage * BN;
+    const int col = cur.kb * p.block_k + cur.kt + 2 * t;
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
       const float2 s2 = *reinterpret_cast<const float2*>(sq + i * 8 + 2 * t);
+      const float e00 = candidate(d[4 * i], sc[0], s2.x);
+      const float e01 = candidate(d[4 * i + 1], sc[0], s2.y);
+      const float e10 = candidate(d[4 * i + 2], sc[1], s2.x);
+      const float e11 = candidate(d[4 * i + 3], sc[1], s2.y);
       if constexpr (ARGMIN) {
-        keep_min(rmin[0], rarg[0], d[4 * i] + s2.x, col + i * 8);
-        keep_min(rmin[0], rarg[0], d[4 * i + 1] + s2.y, col + i * 8 + 1);
-        keep_min(rmin[1], rarg[1], d[4 * i + 2] + s2.x, col + i * 8);
-        keep_min(rmin[1], rarg[1], d[4 * i + 3] + s2.y, col + i * 8 + 1);
+        keep_min(rmin[0], rarg[0], e00, col + i * 8);
+        keep_min(rmin[0], rarg[0], e01, col + i * 8 + 1);
+        keep_min(rmin[1], rarg[1], e10, col + i * 8);
+        keep_min(rmin[1], rarg[1], e11, col + i * 8 + 1);
       } else {
-        rmin[0] = fminf(rmin[0], fminf(d[4 * i] + s2.x, d[4 * i + 1] + s2.y));
-        rmin[1] = fminf(rmin[1], fminf(d[4 * i + 2] + s2.x, d[4 * i + 3] + s2.y));
+        rmin[0] = fminf(rmin[0], fminf(e00, e01));
+        rmin[1] = fminf(rmin[1], fminf(e10, e11));
       }
     }
 
-    const int obj = block_obj[cur.kb];
+    const int obj = p.block_obj[cur.kb];
     cur.next();
     // the object's last tile (in this split): its blocks are consecutive
-    if (!cur.done() && block_obj[cur.kb] == obj) continue;
+    if (!cur.done() && p.block_obj[cur.kb] == obj) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float v = rmin[half];
@@ -438,14 +592,12 @@ global_matching_wgmma(const __nv_bfloat16* __restrict__ query,
       }
       const int64_t row = rows[half];
       if (t == 0 && row < nq) {
-        if (!ARGMIN) {
-          out[row * num_obj + obj] = manet::finish_distance(v, qsq[half]);
-        } else if (part_v != nullptr) {
+        if (part_v != nullptr) {
           part_v[row * num_obj + obj] = v;
-          part_i[row * num_obj + obj] = i;
+          if (ARGMIN) part_i[row * num_obj + obj] = i;
         } else {
-          out[row * num_obj + obj] = manet::finish_distance(v, qsq[half]);
-          idx[row * num_obj + obj] = i;
+          p.out[row * num_obj + obj] = manet::finish_distance(v, qn[half]);
+          if (ARGMIN) p.idx[row * num_obj + obj] = i;
         }
       }
       rmin[half] = manet::kBig;
@@ -454,10 +606,12 @@ global_matching_wgmma(const __nv_bfloat16* __restrict__ query,
   }
 }
 
-// Fold the S partials of each (query, object) of the split argmin kernel in
-// ascending split order (strict <: of equal minima the earlier split, whose
-// rows are lower, keeps its row), then |q|^2, clamp and normalize.
-__global__ void argmin_merge(const float* __restrict__ part_v,
+// Fold the S partials of each (query, object) of a split kernel in
+// ascending split order (strict <: of equal minima the earlier split,
+// whose rows are lower, keeps its row; without ARGMIN this is a plain
+// min), then |q|^2, clamp and normalize.
+template <bool ARGMIN>
+__global__ void merge_splits(const float* __restrict__ part_v,
                              const int* __restrict__ part_i,
                              const float* __restrict__ part_qn,
                              float* __restrict__ out, int* __restrict__ idx,
@@ -465,16 +619,42 @@ __global__ void argmin_merge(const float* __restrict__ part_v,
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float v = part_v[i];
-  int r = part_i[i];
+  int r = ARGMIN ? part_i[i] : -1;
   for (int s = 1; s < splits; ++s) {
     const float w = part_v[s * n + i];
     if (w < v) {
       v = w;
-      r = part_i[s * n + i];
+      if (ARGMIN) r = part_i[s * n + i];
     }
   }
   out[i] = manet::finish_distance(v, part_qn[i / num_obj]);
-  idx[i] = r;
+  if (ARGMIN) idx[i] = r;
+}
+
+// Launch one wgmma variant on a grid of query tiles x `splits`, then (S >
+// 1) the merge of its partials from `scratch`: splits * nq * num_obj f32
+// (and, with ARGMIN, as many int32) partials, then nq f32 |q|^2.
+template <bool ARGMIN, bool INT8>
+int launch_wgmma(AwArgs p, void* scratch, int splits, cudaStream_t s) {
+  using K = Aw<ARGMIN, INT8>;
+  const long long n = p.nq * p.num_obj;
+  if (splits > 1) {
+    p.part_v = static_cast<float*>(scratch);
+    p.part_i = ARGMIN ? reinterpret_cast<int*>(p.part_v + splits * n) : nullptr;
+    p.part_qn = p.part_v + (ARGMIN ? 2 : 1) * splits * n;
+  }
+  cudaError_t err = cudaFuncSetAttribute(global_matching_wgmma<ARGMIN, INT8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((p.nq + AW_BM - 1) / AW_BM),
+                  static_cast<unsigned>(splits));
+  global_matching_wgmma<ARGMIN, INT8><<<grid, AW_THREADS, K::SMEM, s>>>(p);
+  if (splits > 1) {
+    const int threads = 256;
+    merge_splits<ARGMIN><<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0, s>>>(
+        p.part_v, p.part_i, p.part_qn, p.out, p.idx, n, p.num_obj, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------- f32 argmin on the CUDA cores
@@ -591,186 +771,6 @@ global_matching_fma_argmin(const float* __restrict__ query,
     }
   }
 }
-
-// ------------------------------------------------------ int8 tensor cores
-
-constexpr int I8_TILE_K = 128;              // keys per tile
-constexpr int I8_PITCH = MMA_C + 16;        // bytes per staged key row
-constexpr int I8_KSTEPS = MMA_C / 32;       // m16n8k32 steps over the channels
-constexpr int I8_MAGIC = 0x4B400000;        // the bits of the float 1.5 * 2^23
-constexpr float I8_MAGIC_F = 12582912.f;    // 1.5 * 2^23
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// e = float(cross) * sc + kn, from an accumulator that started at I8_MAGIC
-__device__ __forceinline__ float int8_candidate(int acc, float sc, float kn) {
-  const float cross = __fsub_rn(__int_as_float(acc), I8_MAGIC_F);
-  return __fadd_rn(__fmul_rn(cross, sc), kn);
-}
-
-__global__ void __launch_bounds__(MMA_WARPS * 32, 4)
-global_matching_mma_int8(const int8_t* __restrict__ query,
-                         const int8_t* __restrict__ keys,
-                         const float* __restrict__ sqnorm,
-                         const int* __restrict__ block_obj,
-                         const float* __restrict__ scales,
-                         float* __restrict__ out, int64_t nq, int nkb,
-                         int block_k, int num_obj) {
-  __shared__ __align__(16) int8_t ks[2][I8_TILE_K * I8_PITCH];
-  __shared__ float acc[MMA_TQ][O_MAX];
-  __shared__ float qn[MMA_TQ];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * MMA_TQ;
-
-  for (int i = tid; i < MMA_TQ * O_MAX; i += MMA_WARPS * 32)
-    (&acc[0][0])[i] = manet::kBig;
-
-  // A fragments of this warp's 32 queries (rows g, g+8 of two m16 tiles;
-  // each register holds 4 channels), the partial integer |q^|^2 over the
-  // channels this lane holds, and each row's cross-term scale
-  uint32_t a[2][I8_KSTEPS][4];
-  int qsq[2][2] = {{0, 0}, {0, 0}};
-  float sc0[2][2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int64_t row = q0 + warp * MMA_ROWS + m * 16 + g + half * 8;
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(query + row * MMA_C);
-#pragma unroll
-      for (int s = 0; s < I8_KSTEPS; ++s) {
-        const uint32_t lo = row < nq ? src[s * 8 + t] : 0u;       // cols 4t..4t+3
-        const uint32_t hi = row < nq ? src[s * 8 + 4 + t] : 0u;   // cols 16+4t..
-        a[m][s][half] = lo;
-        a[m][s][2 + half] = hi;
-        qsq[m][half] = __dp4a(static_cast<int>(lo), static_cast<int>(lo), qsq[m][half]);
-        qsq[m][half] = __dp4a(static_cast<int>(hi), static_cast<int>(hi), qsq[m][half]);
-      }
-      sc0[m][half] = row < nq ? scales[row * 2] : 0.f;
-    }
-  }
-
-  // stage tile (kb, kt) of k^ into buffer `buf`: 128 rows x 128 bytes
-  auto load_tile = [&](int buf, int kb, int kt) {
-    const int8_t* src = keys + (static_cast<int64_t>(kb) * block_k + kt) * MMA_C;
-#pragma unroll
-    for (int j = 0; j < I8_TILE_K * MMA_C / 16 / (MMA_WARPS * 32); ++j) {
-      const int idx = tid + j * MMA_WARPS * 32;
-      const int row = idx >> 3, chunk = idx & 7;
-      cp_async16(&ks[buf][row * I8_PITCH + chunk * 16], src + row * MMA_C + chunk * 16);
-    }
-  };
-
-  float rmin[2][2] = {{manet::kBig, manet::kBig}, {manet::kBig, manet::kBig}};
-  int kb = next_block(block_obj, 0, nkb, num_obj), kt = 0, buf = 0;
-  if (kb < nkb) load_tile(0, kb, 0);
-  cp_async_commit();
-  while (kb < nkb) {
-    int nkt = kt + I8_TILE_K, nkb2 = kb;
-    if (nkt == block_k) {
-      nkt = 0;
-      nkb2 = next_block(block_obj, kb + 1, nkb, num_obj);
-    }
-    if (nkb2 < nkb) load_tile(buf ^ 1, nkb2, nkt);
-    cp_async_commit();
-    cp_async_wait_one();   // this tile has landed
-    __syncthreads();
-
-    const int8_t* tile = ks[buf];
-    const float* sq = sqnorm + static_cast<int64_t>(kb) * block_k + kt;
-#pragma unroll 1
-    for (int ns = 0; ns < I8_TILE_K / 8; ns += 2) {
-      int d[2][2][4];   // [n-subtile][m-tile][fragment]
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) d[n][m][i] = I8_MAGIC;
-#pragma unroll
-      for (int s = 0; s < I8_KSTEPS; ++s) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const uint32_t* brow = reinterpret_cast<const uint32_t*>(
-              tile + ((ns + n) * 8 + g) * I8_PITCH + s * 32);
-          const uint32_t b0 = brow[t], b1 = brow[4 + t];
-          mma_s8(d[n][0], a[0][s], b0, b1);
-          mma_s8(d[n][1], a[1][s], b0, b1);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const float2 s2 = *reinterpret_cast<const float2*>(sq + (ns + n) * 8 + 2 * t);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          rmin[m][0] = fminf(rmin[m][0],
-                             fminf(int8_candidate(d[n][m][0], sc0[m][0], s2.x),
-                                   int8_candidate(d[n][m][1], sc0[m][0], s2.y)));
-          rmin[m][1] = fminf(rmin[m][1],
-                             fminf(int8_candidate(d[n][m][2], sc0[m][1], s2.x),
-                                   int8_candidate(d[n][m][3], sc0[m][1], s2.y)));
-        }
-      }
-    }
-
-    if (nkb2 != kb) {   // the k-block ends: fold its minima into its object
-      const int obj = block_obj[kb];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float v = rmin[m][half];
-          v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-          v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-          if (t == 0) {
-            float* cell = &acc[warp * MMA_ROWS + m * 16 + g + half * 8][obj];
-            *cell = fminf(*cell, v);
-          }
-          rmin[m][half] = manet::kBig;
-        }
-      }
-    }
-    __syncthreads();   // the tile is consumed before its buffer refills
-    kb = nkb2;
-    kt = nkt;
-    buf ^= 1;
-  }
-
-  // s_q^2 |q^|^2 per row (the integer sum is exact), then the finalize
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      int v = qsq[m][half];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      const int local = warp * MMA_ROWS + m * 16 + g + half * 8;
-      const int64_t row = q0 + local;
-      if (t == 0)
-        qn[local] = row < nq ? __fmul_rn(static_cast<float>(v), scales[row * 2 + 1]) : 0.f;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < MMA_TQ * num_obj; i += MMA_WARPS * 32) {
-    const int row = i / num_obj, o = i - row * num_obj;
-    const int64_t gq = q0 + row;
-    if (gq < nq) {
-      const float d = fminf(fmaxf(__fadd_rn(acc[row][o], qn[row]), 0.f), manet::kBig);
-      out[gq * num_obj + o] = manet::normalize_distance(d);
-    }
-  }
-}
-
 // The launch's arguments are valid: f32 needs c a multiple of 32 up to 128
 // (and, without argmin, block_k a multiple of 128), bf16 c = 128.
 bool shape_ok(long long nq, int c, int nkb, int block_k, int num_obj,
@@ -779,7 +779,7 @@ bool shape_ok(long long nq, int c, int nkb, int block_k, int num_obj,
       block_k % aw_bn(argmin) != 0)
     return false;
   if (argmin && static_cast<long long>(nkb) * block_k > 0x7fffffffLL) return false;
-  if (bf16) return c == MMA_C;
+  if (bf16) return c == C_PAD;
   return argmin ? c > 0 && c <= FMA_C_MAX && c % FMA_CK == 0
                 : manet::tf32_shape_ok(nq, c, nkb, block_k, num_obj);
 }
@@ -805,18 +805,17 @@ extern "C" int manet_global_matching(const void* query, const void* neg2,
         static_cast<const float*>(sqnorm), static_cast<const int*>(block_obj),
         static_cast<float*>(out), nullptr, nullptr, nq, c, nkb, block_k,
         num_obj, s);
-  cudaError_t err = cudaFuncSetAttribute(
-      global_matching_wgmma<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      AwRing<aw_bn(false)>::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((nq + AW_BM - 1) / AW_BM));
-  global_matching_wgmma<false><<<grid, AW_THREADS, AwRing<aw_bn(false)>::SMEM, s>>>(
-      static_cast<const __nv_bfloat16*>(query),
-      static_cast<const __nv_bfloat16*>(neg2),
-      static_cast<const float*>(sqnorm), static_cast<const int*>(block_obj),
-      static_cast<float*>(out), nullptr, nullptr, nullptr, nullptr, nq, nkb,
-      block_k, num_obj);
-  return static_cast<int>(cudaGetLastError());
+  AwArgs p{};
+  p.query = query;
+  p.keys = neg2;
+  p.sqnorm = static_cast<const float*>(sqnorm);
+  p.block_obj = static_cast<const int*>(block_obj);
+  p.out = static_cast<float*>(out);
+  p.nq = nq;
+  p.nkb = nkb;
+  p.block_k = block_k;
+  p.num_obj = num_obj;
+  return launch_wgmma<false, false>(p, nullptr, 1, s);
 }
 
 // As manet_global_matching, plus idx (nq, num_obj) int32: the bucketed
@@ -833,59 +832,60 @@ extern "C" int manet_global_matching_argmin(
       (splits > 1 && (!is_bf16 || scratch == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* bo = static_cast<const int*>(block_obj);
-  const auto* sq = static_cast<const float*>(sqnorm);
-  auto* o = static_cast<float*>(out);
-  auto* ix = static_cast<int*>(idx);
   if (!is_bf16) {
     const dim3 grid(static_cast<unsigned>((nq + FMA_TQ - 1) / FMA_TQ));
     global_matching_fma_argmin<<<grid, FMA_THREADS, 0, s>>>(
-        static_cast<const float*>(query), static_cast<const float*>(neg2), sq,
-        bo, o, ix, nq, c, nkb, block_k, num_obj);
+        static_cast<const float*>(query), static_cast<const float*>(neg2),
+        static_cast<const float*>(sqnorm), static_cast<const int*>(block_obj),
+        static_cast<float*>(out), static_cast<int*>(idx), nq, c, nkb, block_k,
+        num_obj);
     return static_cast<int>(cudaGetLastError());
   }
-  const long long n = nq * num_obj;
-  float* part_v = splits > 1 ? static_cast<float*>(scratch) : nullptr;
-  int* part_i = splits > 1 ? reinterpret_cast<int*>(part_v + splits * n) : nullptr;
-  float* part_qn = splits > 1 ? reinterpret_cast<float*>(part_i + splits * n) : nullptr;
-  cudaError_t err = cudaFuncSetAttribute(
-      global_matching_wgmma<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      AwRing<aw_bn(true)>::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((nq + AW_BM - 1) / AW_BM),
-                  static_cast<unsigned>(splits));
-  global_matching_wgmma<true><<<grid, AW_THREADS, AwRing<aw_bn(true)>::SMEM, s>>>(
-      static_cast<const __nv_bfloat16*>(query),
-      static_cast<const __nv_bfloat16*>(neg2), sq, bo, o, ix, part_v, part_i,
-      part_qn, nq, nkb, block_k, num_obj);
-  if (splits > 1) {
-    const int threads = 256;
-    argmin_merge<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0, s>>>(
-        part_v, part_i, part_qn, o, ix, n, num_obj, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
+  AwArgs p{};
+  p.query = query;
+  p.keys = neg2;
+  p.sqnorm = static_cast<const float*>(sqnorm);
+  p.block_obj = static_cast<const int*>(block_obj);
+  p.out = static_cast<float*>(out);
+  p.idx = static_cast<int*>(idx);
+  p.nq = nq;
+  p.nkb = nkb;
+  p.block_k = block_k;
+  p.num_obj = num_obj;
+  return launch_wgmma<true, false>(p, scratch, splits, s);
 }
 
-// The int8 kernel: query (nq, 128) and keys (nkb * block_k, 128) int8,
-// sqnorm (nkb, block_k) f32 = s_k^2 |k^|^2 (1e8 on padding rows), block_obj
-// (nkb,) int32, scales (nq, 2) f32 = [-2 s_q s_k, s_q^2] per query row; out
-// (nq, num_obj) f32. All contiguous on the current device, query and keys
-// 16-byte aligned.
+// The int8 kernel: the float query (nq, c) (bf16 if q_bf16, else f32; c
+// <= 128, quantized in the kernel; q_vec: c = 128 on a 16-byte aligned
+// base), keys (nkb * block_k, 128) int8 (16-byte aligned), sqnorm (nkb,
+// block_k) f32 = s_k^2 |k^|^2 (1e8 on padding rows), block_obj (nkb,)
+// int32, key_scale () f32 = s_k; out (nq, num_obj) f32. The key range is
+// split `splits` ways; with splits > 1, `scratch` holds splits * nq *
+// num_obj f32 partials, then nq f32. All contiguous on the current device.
 extern "C" int manet_global_matching_int8(
     const void* query, const void* keys, const void* sqnorm,
-    const void* block_obj, const void* scales, void* out, long long nq, int c,
-    int nkb, int block_k, int num_obj, void* stream) {
-  if (nq <= 0 || c != MMA_C || block_k <= 0 || block_k % I8_TILE_K != 0 ||
-      num_obj <= 0 || num_obj > O_MAX || nkb < 0)
+    const void* block_obj, const void* key_scale, void* out, void* scratch,
+    long long nq, int c, int nkb, int block_k, int num_obj, int q_bf16,
+    int q_vec, int splits, void* stream) {
+  if (nq <= 0 || c <= 0 || c > C_PAD || (q_vec && c != C_PAD) || block_k <= 0 ||
+      block_k % aw_bn(false) != 0 || num_obj <= 0 || num_obj > O_MAX || nkb < 0 ||
+      splits < 1 || splits > 65535 || (splits > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((nq + MMA_TQ - 1) / MMA_TQ));
-  global_matching_mma_int8<<<grid, MMA_WARPS * 32, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(query), static_cast<const int8_t*>(keys),
-      static_cast<const float*>(sqnorm), static_cast<const int*>(block_obj),
-      static_cast<const float*>(scales), static_cast<float*>(out), nq, nkb,
-      block_k, num_obj);
-  return static_cast<int>(cudaGetLastError());
+  AwArgs p{};
+  p.query = query;
+  p.keys = keys;
+  p.sqnorm = static_cast<const float*>(sqnorm);
+  p.block_obj = static_cast<const int*>(block_obj);
+  p.key_scale = static_cast<const float*>(key_scale);
+  p.out = static_cast<float*>(out);
+  p.nq = nq;
+  p.nkb = nkb;
+  p.block_k = block_k;
+  p.num_obj = num_obj;
+  p.c = c;
+  p.q_bf16 = q_bf16;
+  p.q_vec = q_vec;
+  return launch_wgmma<false, true>(p, scratch, splits, static_cast<cudaStream_t>(stream));
 }
 
 // The dynamic shared memory of the f32 kernel (matching_tf32.cuh), in bytes.

@@ -57,22 +57,28 @@
 // cores. The tensor cores also multiply the out-of-window keys of each
 // n8 tile (48 of 31 keys a row at w = 15).
 //
-// With ARGMIN (entry `manet_local_matching_argmin`, kernel
-// `local_matching_argmin_warp`) the kernel also returns the winner's flat
-// index y * w + x into the previous frame: this replaces the TPU kernel
-// `_kernel_argmin` (called by `local_matching_pallas_argmin`), the forward
-// of the training path's argmin-routed local matching. It keeps the
-// earlier design: one warp per query pixel walks the (2w+1)^2 window in
-// raster order, each lane dotting 4 of every 128 channels and the warp
-// reducing with shuffles; a candidate replaces the running minimum only
-// when it is smaller, so among equal minima the lowest flat index wins,
-// as `jnp.argmin` over the strip does; -1 stays where no key beats the
-// 1e8 sentinel. Out-of-image keys are never visited. Where no key of the
-// object lies in the window the TPU kernel may name another pixel or a
-// padding key, but there the output saturates at 1.0 and the routed
-// gradient is gated to 0 either way. Its per-offset shuffle reduction
-// costs more instructions than the dot product; moving it onto this
-// kernel's tiles is the next step.
+// With ARGMIN (entry `manet_local_matching_argmin`) the same template
+// also returns the winner's flat index y * w + x into the previous frame:
+// this replaces the TPU kernel `_kernel_argmin` (called by
+// `local_matching_pallas_argmin`), the forward of the training path's
+// argmin-routed local matching (kernel 5). Its epilogue folds each masked
+// candidate into a running (min, flat index) per (query, object) with a
+// strict <, and a thread visits its keys in ascending flat order (key rows
+// in order, columns in order within a row), so it keeps the lowest index
+// of equal minima; the quad's lanes and then the warps of each query row
+// (which saw other n8 tiles and key rows) reduce by (value, lower index),
+// a total order. So among equal minima the lowest flat index wins,
+// whichever warp or tile saw it, as `jnp.argmin` over the strip does; -1
+// stays where no key beats the 1e8 sentinel. Where no key of the object
+// lies in the window the TPU kernel may name another pixel or a padding
+// key, but there the output saturates at 1.0 and the routed gradient is
+// gated to 0 either way. The (min, index) pairs double the running state:
+// the argmin instances take at most 256 threads a block (lm_max_threads),
+// so that ptxas can hold them without spills (170 registers at OB = 16),
+// and the patch's query rows come from the wrapper (4, 2 or 1), which
+// takes fewer rows on a small frame: the training crop's 52 x 52 gives
+// only 4 x 13 patches of 4 rows, 52 blocks for 132 SMs; 2 rows (104
+// blocks) timed fastest there, 1 row (208 blocks of 4 warps) between.
 
 #include <stdint.h>
 
@@ -94,8 +100,11 @@ constexpr int LM_C_MAX = 512;
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory of a block
 
 // The most threads a block of object bound OB takes (its launch bound):
-// the running minima of OB = 32 need more than 128 registers a thread.
-__host__ __device__ constexpr int lm_max_threads(int ob) { return ob <= 16 ? 512 : 256; }
+// the running minima of OB = 32, and the running (min, index) pairs of the
+// argmin instances, need more than 128 registers a thread.
+__host__ __device__ constexpr int lm_max_threads(int ob, bool argmin) {
+  return ob <= 16 && !argmin ? 512 : 256;
+}
 
 // x = hi + lo, both TF32 (f32 bit patterns with the low 13 bits zero)
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
@@ -129,7 +138,7 @@ struct LocalPlan {
   int nch;        // LM_CK-channel chunks
   int row_warps;  // warps per query row and key row: LM_TILES n8 tiles each
   int keys;       // keys of a staged row: row_warps * LM_TILES * 8
-  int rows;       // query rows of a patch: LM_PATCH_ROWS, fewer to fit, 0
+  int rows;       // query rows of a patch: max_rows, fewer to fit, 0
                   // where not even one row fits
   int dy;         // key rows per stage, one per warp of a (query row, tiles)
   int threads;    // dy * rows * row_warps * 32
@@ -140,17 +149,19 @@ struct LocalPlan {
   int off_qn, off_ring, smem;
 };
 
-__host__ __device__ inline LocalPlan local_plan(int c, int window, int obj_bound) {
+__host__ __device__ inline LocalPlan local_plan(int c, int window, int obj_bound,
+                                                bool argmin, int max_rows) {
   LocalPlan p;
   p.nch = c / LM_CK;
   const int tiles = (LM_COLS + 2 * window + 7) / 8;
   p.row_warps = (tiles + LM_TILES - 1) / LM_TILES;
   p.keys = p.row_warps * LM_TILES * 8;
   // the most query rows whose patch, |q|^2 and ring fit the block
-  for (p.rows = LM_PATCH_ROWS; p.rows >= 1; p.rows /= 2) {
+  const int max_threads = lm_max_threads(obj_bound, argmin);
+  for (p.rows = max_rows; p.rows >= 1; p.rows /= 2) {
     const int base = p.rows * p.row_warps * 32;
-    if (base > lm_max_threads(obj_bound)) continue;
-    const int dy = lm_max_threads(obj_bound) / base;
+    if (base > max_threads) continue;
+    const int dy = max_threads / base;
     p.dy = dy < LM_DY ? dy : LM_DY;
     p.threads = p.dy * base;
     p.stage = p.dy * p.keys * (LM_PITCH + obj_bound) * 4;
@@ -162,16 +173,17 @@ __host__ __device__ inline LocalPlan local_plan(int c, int window, int obj_bound
   return p;
 }
 
-// Kernel 2. Grid: (column tiles, row patches). OB bounds num_obj. Warp
-// (d, r, part): query row r of the patch, key tiles `part`, and key row d
-// of each stage.
-template <int OB>
-__global__ void __launch_bounds__(lm_max_threads(OB))
+// Kernels 2 and 5 (ARGMIN: also `idx`). Grid: (column tiles, row
+// patches of up to max_rows rows). OB bounds num_obj. Warp (d, r, part):
+// query row r of the patch, key tiles `part`, and key row d of each stage.
+template <int OB, bool ARGMIN>
+__global__ void __launch_bounds__(lm_max_threads(OB, ARGMIN))
 local_matching_tf32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ kno, float* __restrict__ out,
-                    int h, int w, int c, int num_obj, int window) {
+                    int* __restrict__ idx, int h, int w, int c, int num_obj,
+                    int window, int max_rows) {
   extern __shared__ __align__(16) float smem[];
-  const LocalPlan plan = local_plan(c, window, OB);
+  const LocalPlan plan = local_plan(c, window, OB, ARGMIN, max_rows);
   float* sa = smem;                                      // query patch
   float* qn = smem + plan.off_qn / 4;                    // its |q|^2
   uint8_t* ring = reinterpret_cast<uint8_t*>(smem) + plan.off_ring;
@@ -273,8 +285,12 @@ local_matching_tf32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   float run[2][OB];
+  int arg[2][ARGMIN ? OB : 1];   // ARGMIN: the flat index of each minimum
 #pragma unroll
-  for (int o = 0; o < OB; ++o) run[0][o] = run[1][o] = manet::kBig;
+  for (int o = 0; o < OB; ++o) {
+    run[0][o] = run[1][o] = manet::kBig;
+    if constexpr (ARGMIN) arg[0][o] = arg[1][o] = -1;
+  }
   float big[LM_TILES][4], small[LM_TILES][4], cross[LM_TILES][4];
 
   for (int s = 0; s < stages; ++s) {
@@ -333,7 +349,8 @@ local_matching_tf32(const float* __restrict__ q, const float* __restrict__ k,
     if (cc != nch - 1) continue;
 
     // the key row is done: fold its candidates, masked to the window and
-    // the image (outside, the candidate is -2 * -inf + kno = +inf)
+    // the image (outside, the candidate is -2 * -inf + kno = +inf), in
+    // ascending flat index (with ARGMIN the first of equal minima stays)
     const float* kr = slot + plan.dy * row_floats + wd * plan.keys * OB;
 #pragma unroll
     for (int n = 0; n < LM_TILES; ++n) {
@@ -342,6 +359,7 @@ local_matching_tf32(const float* __restrict__ q, const float* __restrict__ k,
         const int key = (wpart * LM_TILES + n) * 8 + 2 * t + j;
         const bool in = static_cast<unsigned>(kx0 + key) < static_cast<unsigned>(w);
         const float* kn = kr + key * OB;
+        const int flat = ky * w + kx0 + key;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int qc = g + 8 * half;       // dx = key - window - qc
@@ -351,36 +369,50 @@ local_matching_tf32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int o = 0; o < OB; o += 4) {
             const float4 kv = *reinterpret_cast<const float4*>(kn + o);
-            run[half][o] = fminf(run[half][o], fmaf(-2.f, x, kv.x));
-            run[half][o + 1] = fminf(run[half][o + 1], fmaf(-2.f, x, kv.y));
-            run[half][o + 2] = fminf(run[half][o + 2], fmaf(-2.f, x, kv.z));
-            run[half][o + 3] = fminf(run[half][o + 3], fmaf(-2.f, x, kv.w));
+            const float cand[4] = {fmaf(-2.f, x, kv.x), fmaf(-2.f, x, kv.y),
+                                   fmaf(-2.f, x, kv.z), fmaf(-2.f, x, kv.w)};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if constexpr (ARGMIN)
+                manet::keep_min(run[half][o + i], arg[half][o + i], cand[i], flat);
+              else
+                run[half][o + i] = fminf(run[half][o + i], cand[i]);
+            }
           }
         }
       }
     }
   }
 
-  // minima over the quad, then over the warps of each query row (through
-  // the ring, free now), then the finish
+  // minima (with ARGMIN, (min, index) by value, then the lower index) over
+  // the quad, then over the warps of each query row (through the ring, free
+  // now), then the finish
 #pragma unroll
   for (int half = 0; half < 2; ++half)
 #pragma unroll
     for (int o = 0; o < OB; ++o) {
-      float v = run[half][o];
-      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-      run[half][o] = v;
+      if constexpr (ARGMIN) {
+        manet::argmin_xor(run[half][o], arg[half][o], 1);
+        manet::argmin_xor(run[half][o], arg[half][o], 2);
+      } else {
+        float v = run[half][o];
+        v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        run[half][o] = v;
+      }
     }
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
   float* part = reinterpret_cast<float*>(ring);   // [d][row][part][16][OB]
+  int* part_arg = reinterpret_cast<int*>(part + plan.threads / 32 * LM_COLS * OB);
   if (t == 0) {
 #pragma unroll
     for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int o = 0; o < OB; ++o)
+      for (int o = 0; o < OB; ++o) {
         part[(warp * LM_COLS + g + 8 * half) * OB + o] = run[half][o];
+        if constexpr (ARGMIN) part_arg[(warp * LM_COLS + g + 8 * half) * OB + o] = arg[half][o];
+      }
   }
   __syncthreads();
   for (int i = tid; i < plan.rows * LM_COLS * num_obj; i += plan.threads) {
@@ -389,95 +421,58 @@ local_matching_tf32(const float* __restrict__ q, const float* __restrict__ k,
     const int y = y0 + row, x = x0 + col;
     if (y >= h || x >= w) continue;
     float v = manet::kBig;
+    int a = -1;
     for (int d = 0; d < plan.dy; ++d)
-      for (int r = 0; r < rw; ++r)
-        v = fminf(v, part[(((d * plan.rows + row) * rw + r) * LM_COLS + col) * OB + o]);
-    out[(static_cast<int64_t>(y) * w + x) * num_obj + o] =
-        manet::finish_distance(v, qn[rest]);
+      for (int r = 0; r < rw; ++r) {
+        const int at = (((d * plan.rows + row) * rw + r) * LM_COLS + col) * OB + o;
+        if constexpr (ARGMIN)
+          manet::argmin_fold(v, a, part[at], part_arg[at]);
+        else
+          v = fminf(v, part[at]);
+      }
+    const int64_t px = (static_cast<int64_t>(y) * w + x) * num_obj + o;
+    out[px] = manet::finish_distance(v, qn[rest]);
+    if (ARGMIN) idx[px] = a;
   }
 }
 
-template <int OB>
-int launch_tf32(const float* q, const float* k, const float* kno, float* out,
-                int h, int w, int c, int num_obj, int window, cudaStream_t stream) {
-  const LocalPlan plan = local_plan(c, window, OB);
+template <int OB, bool ARGMIN>
+int launch_tf32(const float* q, const float* k, const float* kno, float* out, int* idx,
+                int h, int w, int c, int num_obj, int window, int max_rows,
+                cudaStream_t stream) {
+  const LocalPlan plan = local_plan(c, window, OB, ARGMIN, max_rows);
   // a (query row, tiles) per warp, two stages, and the warps' partial
-  // minima in the freed ring
-  if (plan.rows == 0 || plan.threads / 32 * LM_COLS * OB * 4 > LM_STAGES * plan.stage)
+  // minima (and their indices) in the freed ring
+  if (plan.rows == 0 ||
+      (ARGMIN ? 2 : 1) * plan.threads / 32 * LM_COLS * OB * 4 > LM_STAGES * plan.stage)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      local_matching_tf32<OB>, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+      local_matching_tf32<OB, ARGMIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((w + LM_COLS - 1) / LM_COLS, (h + plan.rows - 1) / plan.rows);
-  local_matching_tf32<OB><<<grid, plan.threads, plan.smem, stream>>>(
-      q, k, kno, out, h, w, c, num_obj, window);
+  local_matching_tf32<OB, ARGMIN><<<grid, plan.threads, plan.smem, stream>>>(
+      q, k, kno, out, idx, h, w, c, num_obj, window, max_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------- kernel 5: argmin, one warp per query pixel
-
-constexpr int WARPS = 8;              // query pixels per block
-constexpr int C_CHUNKS = 4;           // up to 4 x 128 channels
-
-__global__ void __launch_bounds__(WARPS * 32)
-local_matching_argmin_warp(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ kno, float* __restrict__ out,
-                           int* __restrict__ idx, int h, int w, int c, int num_obj,
-                           int window) {
-  const int lane = threadIdx.x & 31;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (p >= static_cast<int64_t>(h) * w) return;  // the whole warp leaves
-  const int y = static_cast<int>(p / w), x = static_cast<int>(p % w);
-  const int nchunk = c / 128;
-
-  float4 qv[C_CHUNKS];
-  float qn = 0.f;
-#pragma unroll
-  for (int ch = 0; ch < C_CHUNKS; ++ch) {
-    qv[ch] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ch < nchunk) {
-      qv[ch] = *reinterpret_cast<const float4*>(q + p * c + ch * 128 + lane * 4);
-      qn = fmaf(qv[ch].x, qv[ch].x, qn);
-      qn = fmaf(qv[ch].y, qv[ch].y, qn);
-      qn = fmaf(qv[ch].z, qv[ch].z, qn);
-      qn = fmaf(qv[ch].w, qv[ch].w, qn);
-    }
-  }
-  qn = manet::warp_sum(qn);
-
-  const int y0 = max(0, y - window), y1 = min(h - 1, y + window);
-  const int x0 = max(0, x - window), x1 = min(w - 1, x + window);
-  float run = manet::kBig;
-  int arg = -1;
-  for (int ky = y0; ky <= y1; ++ky) {
-    for (int kx = x0; kx <= x1; ++kx) {
-      const int64_t kp = static_cast<int64_t>(ky) * w + kx;
-      const float* kr = k + kp * c + lane * 4;
-      float s = 0.f;
-#pragma unroll
-      for (int ch = 0; ch < C_CHUNKS; ++ch) {
-        if (ch < nchunk) {
-          const float4 kv = *reinterpret_cast<const float4*>(kr + ch * 128);
-          s = fmaf(qv[ch].x, kv.x, s);
-          s = fmaf(qv[ch].y, kv.y, s);
-          s = fmaf(qv[ch].z, kv.z, s);
-          s = fmaf(qv[ch].w, kv.w, s);
-        }
-      }
-      s = manet::warp_sum(s);
-      if (lane < num_obj) {
-        const float cand = fmaf(-2.f, s, kno[kp * num_obj + lane]);
-        if (cand < run) {
-          run = cand;
-          arg = static_cast<int>(kp);
-        }
-      }
-    }
-  }
-  if (lane < num_obj) {
-    out[p * num_obj + lane] = manet::finish_distance(run, qn);
-    idx[p * num_obj + lane] = arg;
-  }
+// Both entries: the object bound's instance.
+template <bool ARGMIN>
+int launch_bucketed(const void* q, const void* k, const void* kno, void* out, void* idx,
+                    int h, int w, int c, int num_obj, int window, int max_rows,
+                    void* stream) {
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* nf = static_cast<const float*>(kno);
+  auto* of = static_cast<float*>(out);
+  auto* ix = static_cast<int*>(idx);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (num_obj <= 4)
+    return launch_tf32<4, ARGMIN>(qf, kf, nf, of, ix, h, w, c, num_obj, window, max_rows, s);
+  if (num_obj <= 8)
+    return launch_tf32<8, ARGMIN>(qf, kf, nf, of, ix, h, w, c, num_obj, window, max_rows, s);
+  if (num_obj <= 16)
+    return launch_tf32<16, ARGMIN>(qf, kf, nf, of, ix, h, w, c, num_obj, window, max_rows, s);
+  return launch_tf32<32, ARGMIN>(qf, kf, nf, of, ix, h, w, c, num_obj, window, max_rows, s);
 }
 
 bool shape_ok(int h, int w, int c, int num_obj, int window) {
@@ -496,37 +491,27 @@ extern "C" int manet_local_matching(const void* q, const void* k,
                                     void* stream) {
   if (!shape_ok(h, w, c, num_obj, window))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* nf = static_cast<const float*>(kno);
-  auto* of = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (num_obj <= 4) return launch_tf32<4>(qf, kf, nf, of, h, w, c, num_obj, window, s);
-  if (num_obj <= 8) return launch_tf32<8>(qf, kf, nf, of, h, w, c, num_obj, window, s);
-  if (num_obj <= 16) return launch_tf32<16>(qf, kf, nf, of, h, w, c, num_obj, window, s);
-  return launch_tf32<32>(qf, kf, nf, of, h, w, c, num_obj, window, s);
+  return launch_bucketed<false>(q, k, kno, out, nullptr, h, w, c, num_obj, window,
+                                LM_PATCH_ROWS, stream);
 }
 
 // As manet_local_matching, plus idx (h, w, num_obj) int32: the flat index
-// of each minimum's key in the (h, w) previous frame.
+// of each minimum's key in the (h, w) previous frame. The patches take up
+// to `rows` query rows (1, 2 or 4).
 extern "C" int manet_local_matching_argmin(const void* q, const void* k,
                                            const void* kno, void* out,
                                            void* idx, int h, int w, int c,
-                                           int num_obj, int window,
+                                           int num_obj, int window, int rows,
                                            void* stream) {
-  if (!shape_ok(h, w, c, num_obj, window) || idx == nullptr)
+  if (!shape_ok(h, w, c, num_obj, window) || idx == nullptr ||
+      (rows != 1 && rows != 2 && rows != LM_PATCH_ROWS))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n = static_cast<int64_t>(h) * w;
-  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
-  local_matching_argmin_warp<<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(kno), static_cast<float*>(out),
-      static_cast<int*>(idx), h, w, c, num_obj, window);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bucketed<true>(q, k, kno, out, idx, h, w, c, num_obj, window, rows,
+                               stream);
 }
 
 // The dynamic shared memory of kernel 2 at (c, window, num_obj), in bytes.
 extern "C" int manet_local_matching_smem(int c, int window, int num_obj) {
   const int ob = num_obj <= 4 ? 4 : num_obj <= 8 ? 8 : num_obj <= 16 ? 16 : 32;
-  return local_plan(c, window, ob).smem;
+  return local_plan(c, window, ob, false, LM_PATCH_ROWS).smem;
 }

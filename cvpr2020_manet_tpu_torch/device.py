@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -15,3 +17,14 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: str | torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (the kernels' launch
+    planners fill them)."""
+    return _sm_count(torch.device(device).index or 0)

@@ -19,7 +19,7 @@ plain version below for a CPU query. There is no fallback between them.
 variant (which replaces `matching_pallas.py::_matching_kernel_argmin`):
 it also returns each minimum's row in the bucketed layout, for the
 training path's argmin-routed backward (`ops/trainable.py`). On bf16 it
-splits the key range into `argmin_splits` runs of k-blocks, one block of
+splits the key range into `key_splits` runs of k-blocks, one block of
 the grid per (query tile, split), so that a training crop's matching
 fills the card; the splits' partial (min, row) merge in key order, so
 the lowest bucketed row still wins ties.
@@ -27,22 +27,27 @@ the lowest bucketed row still wins ties.
 `global_matching_prepared_int8` is the opt-in int8 serving mode (it
 replaces `matching_pallas.py::_matching_kernel_int8`): the reference is
 quantized once per round with one symmetric scale (`prepare_ref_int8`),
-each query row with its own (`quantize_rows_int8`), and the cross term
-runs on the int8 tensor cores with int32 accumulation. The result is the
-exact f32 distance between the dequantized vectors:
+each query row with its own (`quantize_rows_int8`; the kernel does it in
+its prologue, bit for bit, so a launch takes the float query), and the
+cross term runs on the int8 tensor cores with int32 accumulation. The
+result is the exact f32 distance between the dequantized vectors:
 
     d = s_q^2 |q^|^2 + s_k^2 |k^|^2 - 2 s_q s_k (q^ . k^)
+
+Where the query tiles do not fill the card (the batch engine's 25,920
+queries a launch) it splits the key range too (`key_splits`), and
+the splits' partial minima merge in a second pass.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from cvpr2020_manet_tpu_torch.device import sm_count
 from cvpr2020_manet_tpu_torch.kernels import build
 from cvpr2020_manet_tpu_torch.ops.matching import (
     WRONG_LABEL_PADDING_DISTANCE, acc_dtype, normalize_distance)
@@ -140,6 +145,14 @@ def prepare_ref(ref: torch.Tensor, ref_onehot: torch.Tensor,
                        block_obj=block_obj, src_idx=src_idx, num_objects=o)
 
 
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 by IEEE division on every device, as JAX and the int8
+    kernel divide. (PyTorch divides a CUDA tensor by a Python number as a
+    multiply by its reciprocal, which differs in the last bit for about
+    one value in twenty.)"""
+    return x / torch.full_like(x, 127.0)
+
+
 def quantize_symmetric_int8(x: torch.Tensor,
                             row_mask: torch.Tensor | None = None):
     """Symmetric per-tensor int8: x ~= scale * x^, scale = max(max|x|,
@@ -149,7 +162,7 @@ def quantize_symmetric_int8(x: torch.Tensor,
     x32 = x.float()
     stat = x32 if row_mask is None else torch.where(
         row_mask.bool()[:, None], x32, 0.0)
-    scale = torch.clamp(stat.abs().amax(), min=1e-6) / 127.0
+    scale = _div127(torch.clamp(stat.abs().amax(), min=1e-6))
     x_hat = torch.clamp(torch.round(x32 / scale), -127.0, 127.0)
     return x_hat.to(torch.int8), scale
 
@@ -159,7 +172,7 @@ def quantize_rows_int8(x: torch.Tensor):
     that row alone, so they do not depend on how rows are batched into
     launches). -> (x^ (N, C) int8, scales (N,) f32)."""
     x32 = x.float()
-    scales = torch.clamp(x32.abs().amax(dim=-1), min=1e-6) / 127.0
+    scales = _div127(torch.clamp(x32.abs().amax(dim=-1), min=1e-6))
     x_hat = torch.clamp(torch.round(x32 / scales[:, None]), -127.0, 127.0)
     return x_hat.to(torch.int8), scales
 
@@ -279,17 +292,27 @@ _ARGTYPES = {
     True: [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 6
     + [ctypes.c_void_p]}
 
-# Resident blocks of the bf16 argmin kernel per SM (its launch bound).
-ARGMIN_BLOCKS_PER_SM = 2
-ARGMIN_QUERY_TILE = 128          # queries per block of the bf16 argmin kernel
+# Resident blocks per SM of the wgmma template's kernels (its launch
+# bound), and queries per block: kernels 1 bf16, 3 and 4.
+BLOCKS_PER_SM = 2
+QUERY_TILE = 128
 
 
 def plan_splits(query_tiles: int, live_blocks: int, sms: int) -> int:
-    """Key splits S of the bf16 argmin kernel: as many as keep query_tiles
-    x S blocks within one wave of ARGMIN_BLOCKS_PER_SM resident blocks per
-    SM, at least 1 and at most one live k-block per split."""
-    fill = ARGMIN_BLOCKS_PER_SM * sms // max(query_tiles, 1)
-    return max(1, min(live_blocks, fill))
+    """Key splits S of kernels 3 and 4, at least 1 and at most one live
+    k-block per split: 1 where the query tiles fill the BLOCKS_PER_SM
+    resident blocks of every SM; else the most that keep the grid in one
+    wave, where that is at least 2 (a training crop's 85 tiles on 132 SMs:
+    3); else (more than half a wave of tiles) the fewest that give every
+    resident slot two blocks, so that the blocks finishing last leave less
+    of the card idle (the batch engine's 203 tiles: 3)."""
+    slots = BLOCKS_PER_SM * sms
+    tiles = max(query_tiles, 1)
+    if tiles >= slots:
+        return 1
+    fill = slots // tiles
+    splits = fill if fill >= 2 else -(-2 * slots // tiles)
+    return max(1, min(live_blocks, splits))
 
 
 def split_ranges(live_blocks: int, splits: int) -> list[tuple[int, int]]:
@@ -299,22 +322,19 @@ def split_ranges(live_blocks: int, splits: int) -> list[tuple[int, int]]:
             for s in range(splits)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def argmin_splits(nq: int, bucketed: BucketedRef, device) -> int:
-    """The splits the argmin wrapper launches on `device` for Nq bf16
-    queries. The live k-blocks are counted on the device; the host plans
-    with their upper bound, the number of k-blocks, so that a launch
+def key_splits(nq: int, bucketed: BucketedRef | BucketedRefInt8,
+               device) -> int:
+    """The key splits the int8 and the bf16 argmin wrappers launch on
+    `device` for Nq queries (kernel 4's f32 variant, on the CUDA cores,
+    takes none). The live k-blocks are counted on the device; the host
+    plans with their upper bound, the number of k-blocks, so that a launch
     needs no device-to-host read (a split left without blocks writes the
     empty-object partials)."""
-    if bucketed.neg2pixels.dtype != torch.bfloat16:
+    if (isinstance(bucketed, BucketedRef)
+            and bucketed.neg2pixels.dtype != torch.bfloat16):
         return 1
-    tiles = -(-nq // ARGMIN_QUERY_TILE)
-    return plan_splits(tiles, bucketed.block_obj.shape[0],
-                       _sm_count(torch.device(device).index or 0))
+    return plan_splits(-(-nq // QUERY_TILE), bucketed.block_obj.shape[0],
+                       sm_count(device))
 
 
 def _launch(query: torch.Tensor, bucketed: BucketedRef, argmin: bool):
@@ -336,7 +356,7 @@ def _launch(query: torch.Tensor, bucketed: BucketedRef, argmin: bool):
             out.data_ptr()]
     shape = [nq, q.shape[1], nkb, block_k, o, int(q.dtype == torch.bfloat16)]
     if argmin:
-        splits = argmin_splits(nq, bucketed, q.device)
+        splits = key_splits(nq, bucketed, q.device)
         # partial minima and rows (splits, Nq, O), then |q|^2 (Nq,)
         scratch = (torch.empty(splits * nq * o * 2 + nq, dtype=torch.int32,
                                device=q.device) if splits > 1 else None)
@@ -422,61 +442,70 @@ def global_matching_prepared_int8_plain(query: torch.Tensor,
     return normalize_distance(d)
 
 
-def _check_int8(q_hat: torch.Tensor, scales: torch.Tensor,
-                bucketed: BucketedRefInt8) -> None:
-    """What the int8 kernel takes: int8 query and keys of 128 channels,
-    16-byte aligned, f32 norms and scales, all contiguous on one CUDA
-    device."""
-    if q_hat.device.type != "cuda":
-        raise ValueError(f"unsupported device {q_hat.device}")
+def _check_int8(query: torch.Tensor, bucketed: BucketedRefInt8) -> None:
+    """What the int8 kernel takes: a float query of at most 128 channels
+    and int8 keys of 128 channels (16-byte aligned), f32 norms and key
+    scale, all contiguous on one CUDA device."""
+    if query.device.type != "cuda":
+        raise ValueError(f"unsupported device {query.device}")
     pixels, sqnorm, block_obj = (bucketed.pixels, bucketed.sqnorm,
                                  bucketed.block_obj)
     nkb, block_k = sqnorm.shape
-    if q_hat.dtype != torch.int8 or pixels.dtype != torch.int8:
-        raise TypeError(f"query {q_hat.dtype} and reference {pixels.dtype}: "
-                        "int8 only")
-    if (sqnorm.dtype != torch.float32 or scales.dtype != torch.float32
+    if pixels.dtype != torch.int8:
+        raise TypeError(f"reference {pixels.dtype}: int8 only")
+    if (sqnorm.dtype != torch.float32 or bucketed.scale.dtype != torch.float32
             or block_obj.dtype != torch.int32):
-        raise TypeError("sqnorm and scales must be f32, block_obj int32")
-    if (q_hat.shape[1] != pixels.shape[1] or pixels.shape[0] != nkb * block_k
-            or block_obj.shape != (nkb,)
-            or scales.shape != (q_hat.shape[0], 2)):
-        raise ValueError("query / bucketed reference shapes disagree")
+        raise TypeError("sqnorm and scale must be f32, block_obj int32")
     if pixels.shape[1] != 128:
         raise ValueError(f"the kernel takes 128 channels, got "
                          f"{pixels.shape[1]}")
-    for t in (q_hat, scales, pixels, sqnorm, block_obj):
-        if t.device != q_hat.device or not t.is_contiguous():
-            raise ValueError("query, scales and bucketed reference must be "
+    if (query.shape[1] > pixels.shape[1] or pixels.shape[0] != nkb * block_k
+            or block_obj.shape != (nkb,) or bucketed.scale.numel() != 1):
+        raise ValueError("query / bucketed reference shapes disagree")
+    for t in (query, pixels, sqnorm, block_obj, bucketed.scale):
+        if t.device != query.device or not t.is_contiguous():
+            raise ValueError("query and bucketed reference must be "
                              "contiguous on one device")
-    for name, t in (("query", q_hat), ("pixels", pixels)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    if pixels.data_ptr() % 16:
+        raise ValueError("pixels must be 16-byte aligned")
 
 
-# q^, pixels, sqnorm, block_obj, scales, out; nq; c, nkb, block_k, o; stream
-_ARGTYPES_INT8 = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# query, pixels, sqnorm, block_obj, scale, out, scratch; nq; c, nkb,
+# block_k, o, q_bf16, q_vec, splits; stream
+_ARGTYPES_INT8 = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
-
-def global_matching_int8_quantized(q_hat: torch.Tensor, scales: torch.Tensor,
-                                   bucketed: BucketedRefInt8) -> torch.Tensor:
-    """The int8 kernel on an already quantized CUDA query (`_int8_query`'s
-    output) -> (Nq, O) f32."""
-    _check_int8(q_hat, scales, bucketed)
-    nq = q_hat.shape[0]
+def _launch_int8(query: torch.Tensor, bucketed: BucketedRefInt8,
+                 splits: int | None = None) -> torch.Tensor:
+    """Check a CUDA float query and launch the int8 kernel, which
+    quantizes it per row in its prologue, on `splits` key splits (by
+    default `key_splits`'s; every count gives the same bits).
+    -> (Nq, O) f32."""
+    if query.dtype not in (torch.float32, torch.bfloat16):
+        query = query.float()       # the plain version's first step, exact
+    query = query.contiguous()
+    _check_int8(query, bucketed)
+    nq, c = query.shape
     nkb, block_k = bucketed.sqnorm.shape
     o = bucketed.num_objects
-    out = torch.empty((nq, o), dtype=torch.float32, device=q_hat.device)
+    out = torch.empty((nq, o), dtype=torch.float32, device=query.device)
     if nq == 0:
         return out
+    if splits is None:
+        splits = key_splits(nq, bucketed, query.device)
+    # partial minima (splits, Nq, O), then |q|^2 (Nq,)
+    scratch = (torch.empty(splits * nq * o + nq, dtype=torch.float32,
+                           device=query.device) if splits > 1 else None)
+    vec = c == 128 and query.data_ptr() % 16 == 0
     name = "global_matching_int8"
     fn = build.kernel_function(name, f"manet_{name}", _ARGTYPES_INT8)
-    with torch.cuda.device(q_hat.device):
-        err = fn(q_hat.data_ptr(), bucketed.pixels.data_ptr(),
+    with torch.cuda.device(query.device):
+        err = fn(query.data_ptr(), bucketed.pixels.data_ptr(),
                  bucketed.sqnorm.data_ptr(), bucketed.block_obj.data_ptr(),
-                 scales.data_ptr(), out.data_ptr(), nq, q_hat.shape[1], nkb,
-                 block_k, o, torch.cuda.current_stream(q_hat.device).cuda_stream)
+                 bucketed.scale.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), nq, c, nkb,
+                 block_k, o, int(query.dtype == torch.bfloat16), int(vec),
+                 splits, torch.cuda.current_stream(query.device).cuda_stream)
     build.check_launch(name, err)
     return out
 
@@ -484,15 +513,14 @@ def global_matching_int8_quantized(q_hat: torch.Tensor, scales: torch.Tensor,
 def global_matching_prepared_int8(query: torch.Tensor,
                                   bucketed: BucketedRefInt8) -> torch.Tensor:
     """Matching of float query rows (Nq, C) against an int8 reference ->
-    (Nq, O) f32. Quantizes the query per row, then launches the int8
-    tensor-core kernel for a CUDA query; runs the plain version for a CPU
-    query."""
+    (Nq, O) f32. Launches the int8 tensor-core kernel for a CUDA query (it
+    quantizes the query per row itself, as `quantize_rows_int8` does);
+    runs the plain version for a CPU query."""
     if query.device.type == "cpu":
         return global_matching_prepared_int8_plain(query, bucketed)
     if not query.dtype.is_floating_point:
         raise TypeError(f"query dtype {query.dtype}: a float type only")
-    return global_matching_int8_quantized(*_int8_query(query, bucketed),
-                                          bucketed)
+    return _launch_int8(query, bucketed)
 
 
 def global_matching_int8_cuda(query: torch.Tensor, ref: torch.Tensor,

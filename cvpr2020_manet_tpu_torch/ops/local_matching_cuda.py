@@ -18,14 +18,16 @@ terms on the TF32 tensor cores in 3xTF32 (f32 accuracy); it takes windows
 up to `LOCAL_WINDOW_MAX`.
 
 `local_matching_argmin` does the same with the kernel's argmin variant
-(which replaces `local_matching_pallas.py::_kernel_argmin`): it also
+(which replaces `local_matching_pallas.py::_kernel_argmin`; the same
+template with an argmin epilogue, and the same window limit): it also
 returns the flat index into the (H*W) previous frame of each minimum's key,
 for the training path's argmin-routed backward (`ops/trainable.py`). Only
-in-image keys compete, in both versions, and the index is -1 where none
-beats the 1e8 sentinel. Where a key of the object lies in the window the
-winner is that object's nearest key, as on the TPU; elsewhere (no key of
-the object in the window) the TPU kernel may name another pixel or a
-padding key, but the output is 1.0 and the routed gradient 0 either way.
+in-image keys compete, in both versions, the lowest flat index wins ties,
+and the index is -1 where none beats the 1e8 sentinel. Where a key of the
+object lies in the window the winner is that object's nearest key, as on
+the TPU; elsewhere (no key of the object in the window) the TPU kernel may
+name another pixel or a padding key, but the output is 1.0 and the routed
+gradient 0 either way.
 """
 
 from __future__ import annotations
@@ -35,14 +37,18 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from cvpr2020_manet_tpu_torch.device import sm_count
 from cvpr2020_manet_tpu_torch.kernels import build
 from cvpr2020_manet_tpu_torch.ops.matching import (
     WRONG_LABEL_PADDING_DISTANCE, acc_dtype, normalize_distance)
 
 
-# The widest window of kernel 2: a patch row's 16 + 2w keys take 4 warps
-# of 3 n8 tiles, whose patches fit a block at every C and O taken here.
+# The widest window of kernels 2 and 5: a patch row's 16 + 2w keys take 4
+# warps of 3 n8 tiles, whose patches fit a block at every C and O taken
+# here.
 LOCAL_WINDOW_MAX = 40
+# Query rows of an argmin patch, the most first (csrc/local_matching.cu).
+ARGMIN_PATCH_ROWS = (4, 2, 1)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -114,11 +120,11 @@ def local_matching_prepared_argmin_plain(q: torch.Tensor, k: torch.Tensor,
     return _plain(q, k, kno, window, argmin=True)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, kno: torch.Tensor, window: int,
-           argmin: bool) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, kno: torch.Tensor,
+           window: int) -> None:
     """What the kernels take: f32, contiguous and 16-byte aligned on one
     CUDA device, matching shapes, C a multiple of 128 up to 512, O <= 32,
-    and (kernel 2) a window up to LOCAL_WINDOW_MAX."""
+    and a window up to LOCAL_WINDOW_MAX."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     h, w, c = q.shape
@@ -136,21 +142,37 @@ def _check(q: torch.Tensor, k: torch.Tensor, kno: torch.Tensor, window: int,
     if c % 128 or c > 512 or o > 32:
         raise ValueError(f"C={c} must be a multiple of 128 up to 512 and "
                          f"O={o} at most 32")
-    if window < 0 or (not argmin and window > LOCAL_WINDOW_MAX):
+    if window < 0 or window > LOCAL_WINDOW_MAX:
         raise ValueError(f"window {window}: 0 to {LOCAL_WINDOW_MAX}")
 
 
-# q, k, kno, out[, idx]; h, w, c, o, window; stream
+# q, k, kno, out[, idx]; h, w, c, o, window[, rows]; stream
 _ARGTYPES = {argmin: [ctypes.c_void_p] * (5 if argmin else 4)
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+             + [ctypes.c_int] * (6 if argmin else 5) + [ctypes.c_void_p]
              for argmin in (False, True)}
 
 
+def argmin_patch_rows(h: int, w: int, sms: int) -> int:
+    """Query rows of kernel 5's patches: the fewest of ARGMIN_PATCH_ROWS
+    whose (column tiles x row patches) grid still has at most one block
+    per SM, else the most (blocks that share an SM run unevenly, and a
+    patch of fewer rows reads the same key rows for fewer queries). A
+    training crop's 52 x 52 takes 2 rows: 104 blocks for 132 SMs."""
+    for rows in sorted(ARGMIN_PATCH_ROWS):
+        if -(-w // 16) * -(-h // rows) <= sms:
+            return rows
+    return max(ARGMIN_PATCH_ROWS)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, kno: torch.Tensor, window: int,
-            argmin: bool):
-    """Check CUDA inputs and launch the kernel (or its argmin variant).
-    -> (out, idx), idx None without `argmin`."""
-    _check(q, k, kno, window, argmin)
+            argmin: bool, rows: int | None = None):
+    """Check CUDA inputs and launch the kernel (or its argmin variant, on
+    patches of `rows` query rows, by default `argmin_patch_rows`'s; every
+    choice gives the same bits). -> (out, idx), idx None without
+    `argmin`."""
+    _check(q, k, kno, window)
+    if argmin and rows is None:
+        rows = argmin_patch_rows(q.shape[0], q.shape[1], sm_count(q.device))
     h, w, c = q.shape
     o = kno.shape[-1]
     out = torch.empty((h, w, o), dtype=torch.float32, device=q.device)
@@ -161,6 +183,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, kno: torch.Tensor, window: int,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), kno.data_ptr(), out.data_ptr(),
                  *([idx.data_ptr()] if argmin else []), h, w, c, o, window,
+                 *([rows] if argmin else []),
                  torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(name, err)
     return out, idx

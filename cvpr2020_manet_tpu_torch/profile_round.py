@@ -38,6 +38,7 @@ import torch
 # kernel-name substring -> layer; first match wins
 LAYERS = (
     ("global_matching", "global matching kernel"),
+    ("merge_splits", "global matching kernel"),     # its key splits' merge
     ("local_matching", "local matching kernel"),
     ("conv", "convolutions (cuDNN)"),
     ("xmma", "convolutions (cuDNN)"),

@@ -20,7 +20,7 @@ import torch
 
 from cvpr2020_manet_tpu.ops import matching_pallas as jmp
 from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
-    ARGMIN_BLOCKS_PER_SM, global_matching_prepared_argmin, plan_splits,
+    BLOCKS_PER_SM, global_matching_prepared_argmin, plan_splits,
     prepare_ref, split_ranges)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -114,9 +114,9 @@ def test_argmin_plain_ties_vs_jax(nq, nk, c, o, block_k, empty):
 def test_split_planner(tiles, live, sms):
     s = plan_splits(tiles, live, sms)
     assert 1 <= s <= live
-    if tiles * 2 <= ARGMIN_BLOCKS_PER_SM * sms:
+    if tiles * 2 <= BLOCKS_PER_SM * sms:
         assert s > 1 or live == 1
-    assert tiles * s <= max(ARGMIN_BLOCKS_PER_SM * sms, tiles)
+    assert tiles * s <= max(BLOCKS_PER_SM * sms, tiles)
     ranges = split_ranges(live, s)
     assert len(ranges) == s
     assert ranges[0][0] == 0 and ranges[-1][1] == live

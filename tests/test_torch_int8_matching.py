@@ -20,9 +20,10 @@ from cvpr2020_manet_tpu_torch.config import tiny_test_config
 from cvpr2020_manet_tpu_torch.models import MANet
 from cvpr2020_manet_tpu_torch.ops import matching as tm
 from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
-    global_matching_cuda, global_matching_int8_cuda,
-    global_matching_prepared_int8, prepare_ref_int8, quantize_rows_int8,
-    quantize_symmetric_int8)
+    BLOCKS_PER_SM, QUERY_TILE, global_matching_cuda,
+    global_matching_int8_cuda, global_matching_prepared_int8, plan_splits,
+    prepare_ref_int8, quantize_rows_int8, quantize_symmetric_int8,
+    split_ranges)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -57,6 +58,73 @@ def test_quantize_rows_bit_equal():
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     assert list(tq[0, 1:6]) == [0, 2, 2, 0, -4]             # half to even
+
+
+def _edge_rows(c):
+    """Rows at the quantizer's edges: quotients exactly at .5 (a row whose
+    largest magnitude is 127, so that s_q = 1), the amax negative and on
+    the last channel, an all-zero row and one below 1e-6 (the clamp),
+    rows whose amax maps to +-127 at a random scale."""
+    rng = np.random.default_rng(5)
+    x = np.zeros((8, c), np.float32)
+    x[0, 0] = 127.0
+    x[0, 1:8] = [0.5, 1.5, 2.5, -0.5, -3.5, 126.5, -100.5]
+    x[1, c - 1] = -127.0
+    x[1, :4] = [63.5, -0.5, 100.5, -126.5]
+    x[3, :3] = [5e-7, -2.5e-7, 1e-7]                  # x[2] stays zero
+    x[4:] = (0.3 * rng.normal(size=(4, c))).astype(np.float32)
+    x[5, c // 2] = -2.0                                 # amax mid-row
+    return x
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 100),
+                                     (torch.bfloat16, 100),
+                                     (torch.float32, 128)])
+def test_quantize_rows_edge_rows_bit_equal(dtype, c):
+    """The per-row query quantizer (which kernel 3 repeats in its
+    prologue on the card) against JAX's on edge rows, in f32 and bf16
+    (the values rounded to bf16 first, identically for both)."""
+    x = torch.from_numpy(_edge_rows(c)).to(dtype)
+    jq, js = jmp.quantize_rows_int8(
+        jnp.asarray(x.float().numpy()).astype(
+            jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32))
+    tq, ts = quantize_rows_int8(x)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert list(tq[0, :8]) == [127, 0, 2, 2, 0, -4, 126, -100]   # to even
+    assert int(tq[1, c - 1]) == -127 and list(tq[1, :4]) == [64, 0, 100, -126]
+    assert not tq[2].any() and float(ts[2]) == np.float32(1e-6) / 127
+    amax = x.float().abs().argmax(dim=1)
+    for r in (4, 5, 6, 7):                 # the amax maps to +-127
+        assert abs(int(tq[r, amax[r]])) == 127
+
+
+@pytest.mark.parametrize("nq,nkb,sms,want", [
+    (25920, 59, 132, 3),       # the batch engine's launch: 203 query tiles
+    (388800, 59, 132, 1),      # the 480p round: 3,038 tiles
+    (130560, 263, 132, 1),     # one 1080p memory page: 1,020 tiles
+    (33792, 59, 132, 1),       # 264 tiles: one per resident slot
+    (1000, 9, 132, 9),         # few queries: one live k-block per split
+    (25920, 59, 114, 3),       # another SM count
+    (10816, 38, 132, 3),       # kernel 4's training crop: 85 tiles
+])
+def test_int8_split_planner(nq, nkb, sms, want):
+    """The key splits of kernels 3 and 4: none where the query tiles fill
+    every resident slot; one wave where it holds two splits or more; else
+    the fewest that give each slot two blocks (at most one k-block each),
+    covering every live k-block once."""
+    tiles = -(-nq // QUERY_TILE)
+    slots = BLOCKS_PER_SM * sms
+    s = plan_splits(tiles, nkb, sms)
+    assert s == want
+    assert 1 <= s <= nkb
+    if 2 * tiles <= slots:
+        assert tiles * s <= slots
+    elif tiles < slots and s < nkb:
+        assert tiles * s >= 2 * slots
+    ranges = split_ranges(nkb, s)
+    assert [lo for lo, _ in ranges[1:]] == [hi for _, hi in ranges[:-1]]
+    assert ranges[0][0] == 0 and ranges[-1][1] == nkb
 
 
 @pytest.mark.parametrize("masked", [False, True])

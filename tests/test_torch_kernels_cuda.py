@@ -14,10 +14,13 @@ matter are exact, the dropped lo x lo product is below 2^-22 of a
 product, and the large products are summed per 32 channels before an f32
 add, so they keep within 1e-5 as well.
 
-The int8 kernel (kernel 3) and its plain version form the same integer
-cross terms exactly (in int32, and in f32 below 2^24) and round the same
-f32 epilogue in the same order, so they differ only in the exp of the
-normalization: 1e-5.
+The int8 kernel (kernel 3) quantizes the float query in its prologue as
+the plain version's `quantize_rows_int8` does, bit for bit (IEEE division,
+ties to even), and the two form the same integer cross terms exactly (in
+int32, and in f32 below 2^24) and round the same f32 epilogue in the same
+order, so they differ only in the exp of the normalization: 1e-5. One
+quantized value off by one would move an unsaturated output by about
+1e-3. Its key splits give the same bits as one walk: a min is exact.
 
 The ring kernel (kernel 6), driven by the ring rotation on members that
 share one card, agrees with the same ring on its plain version to 1e-5
@@ -41,17 +44,18 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_local_ties import local_ties
 from cvpr2020_manet_tpu_torch.kernels import build
 from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
-    argmin_splits, global_matching_int8_quantized, global_matching_prepared,
-    global_matching_prepared_argmin, global_matching_prepared_argmin_plain,
-    global_matching_prepared_int8, global_matching_prepared_int8_plain,
-    global_matching_prepared_plain, prepare_ref, prepare_ref_int8,
-    split_ranges)
+    global_matching_prepared, global_matching_prepared_argmin,
+    global_matching_prepared_argmin_plain, global_matching_prepared_int8,
+    global_matching_prepared_int8_plain, global_matching_prepared_plain,
+    _div127, _launch_int8, key_splits, prepare_ref, prepare_ref_int8,
+    quantize_rows_int8, split_ranges)
 from cvpr2020_manet_tpu_torch.ops.local_matching_cuda import (
-    local_matching_prepared, local_matching_prepared_argmin,
-    local_matching_prepared_argmin_plain, local_matching_prepared_plain,
-    prepare_local)
+    ARGMIN_PATCH_ROWS, _launch as local_launch, local_matching_prepared,
+    local_matching_prepared_argmin, local_matching_prepared_argmin_plain,
+    local_matching_prepared_plain, prepare_local)
 from cvpr2020_manet_tpu_torch.ops.ring_matching_cuda import (
     RingShard, ring_matching_step, ring_matching_step_plain)
 from cvpr2020_manet_tpu_torch.ops.trainable import (
@@ -184,6 +188,78 @@ def test_local_kernel_rejects_wide_window(cuda):
     inputs = _local_case(np.random.default_rng(8), 8, 8, 128, 2, False, cuda)
     with pytest.raises(ValueError, match="window"):
         local_matching_prepared(*inputs, 41)
+
+
+def _local_exact_ties(rng, h, w, c, o, cuda):
+    """A previous frame of small multiples of 1/4 (every product and sum
+    exact, in 3xTF32 as in f32) repeated in blocks of 2 rows x 4 columns,
+    with labels repeated alike, and queries that copy a key plus 1/4 on
+    one channel: each query's nearest keys are a block of exact ties that
+    straddles key rows, n8 tiles and column tiles. -> prepared inputs."""
+    hb, wb = -(-h // 2), -(-w // 4)
+    base = rng.integers(-2, 3, size=(hb, wb, c)) * 0.25
+    k_np = np.repeat(np.repeat(base, 2, axis=0), 4, axis=1)[:h, :w]
+    lab = rng.integers(0, o, size=(hb, wb))
+    labels = np.repeat(np.repeat(lab, 2, axis=0), 4, axis=1)[:h, :w]
+    q_np = np.roll(k_np, (1, -1), axis=(0, 1)).copy()
+    q_np[..., 0] += 0.25
+    q = torch.tensor(q_np, dtype=torch.float32, device=cuda)
+    k = torch.tensor(k_np, dtype=torch.float32, device=cuda)
+    oh = torch.tensor(np.eye(o)[labels], dtype=torch.float32, device=cuda)
+    return prepare_local(q, k, oh)
+
+
+@pytest.mark.parametrize("h,w,c,o,window,exact", [
+    (61, 109, 128, 4, 15, False),   # h, w no multiple of the patch
+    (10, 40, 128, 4, 15, False),    # shorter than 2w + 1
+    (40, 9, 128, 4, 15, False),     # narrower than 2w + 1 and one tile
+    (23, 37, 128, 1, 15, False),    # one object
+    (23, 37, 128, 9, 15, False),    # 8-object bucket + background
+    (23, 37, 100, 32, 7, False),    # the widest object bound
+    (17, 35, 512, 5, 15, False),    # 16 channel chunks
+    (20, 50, 128, 4, 15, True),     # keys repeat: candidates tie exactly
+    (52, 52, 128, 9, 15, True),     # the training shape, exact ties
+    (12, 30, 128, 4, 40, False),    # the widest window (4 warps a row)
+    (12, 30, 128, 4, 1, False),     # window 1: one warp a row
+])
+def test_local_argmin_tf32_cases(cuda, h, w, c, o, window, exact):
+    """Kernel 5 on kernel 2's template at its edge shapes: distances as
+    kernel 2's are held; winners equal to the plain version's wherever an
+    object's best candidate beats the next distinct one by more than GAP;
+    on exact inputs with repeated keys, equal everywhere and, at every
+    tie, the lowest flat index; patches of 4, 2 and 1 query rows give the
+    same bits."""
+    rng = np.random.default_rng(7)
+    inputs = (_local_exact_ties(rng, h, w, c, o, cuda) if exact
+              else _local_case(rng, h, w, c, o, False, cuda))
+    got = {rows: local_launch(*inputs, window, argmin=True, rows=rows)
+           for rows in ARGMIN_PATCH_ROWS}
+    torch.cuda.synchronize()
+    dist, idx = got[ARGMIN_PATCH_ROWS[0]]
+    for d2, i2 in got.values():
+        assert torch.equal(d2, dist) and torch.equal(i2, idx)
+    want, want_idx = local_matching_prepared_argmin_plain(*inputs, window)
+    assert idx.shape == (h, w, o) and idx.dtype == torch.int32
+    assert (want < 0.9).float().mean() > 0.5 / o
+    torch.testing.assert_close(dist, want,
+                               **(TOL if c <= 256 else TOL_WIDE))
+    best, first, count, gap = local_ties(*inputs, window)
+    assert torch.equal(want_idx, first)
+    if exact:
+        assert torch.equal(idx, want_idx)
+        ties = count > 1
+        assert int(ties.sum()) > h * w
+    else:
+        # an object without keys in the window: 1e8-scale candidates
+        clear = (gap > GAP) & (best < 1e7)
+        assert clear.float().mean() > 0.5
+        assert torch.equal(idx[clear], want_idx[clear])
+
+
+def test_local_argmin_rejects_wide_window(cuda):
+    inputs = _local_case(np.random.default_rng(8), 8, 8, 128, 2, False, cuda)
+    with pytest.raises(ValueError, match="window"):
+        local_matching_prepared_argmin(*inputs, 41)
 
 
 @pytest.mark.parametrize("nq,nk,c,o,empty", [
@@ -368,7 +444,7 @@ def test_global_argmin_split_ties(cuda, nq, nk, o):
     rng = np.random.default_rng(9)
     q, k, onehot = _exact_inputs(rng, nq, nk, 128, o, cuda)
     b = prepare_ref(k, onehot)
-    splits = argmin_splits(nq, b, cuda)
+    splits = key_splits(nq, b, cuda)
     runs, n_live = _live_runs(b.block_obj, o)
     cuts = {lo for lo, _ in split_ranges(n_live, splits)} - {0}
     assert splits > 1
@@ -402,7 +478,7 @@ def test_global_argmin_unsplit(cuda):
     rng = np.random.default_rng(10)
     q, k, onehot = _exact_inputs(rng, nq, 2000, 128, 4, cuda)
     b = prepare_ref(k, onehot)
-    assert argmin_splits(nq, b, cuda) == 1
+    assert key_splits(nq, b, cuda) == 1
     before = build.LAUNCHES["global_matching_argmin"]
     got, got_idx = global_matching_prepared_argmin(q, b)
     torch.cuda.synchronize()
@@ -571,10 +647,94 @@ def test_int8_wrapper_rejects_bad_inputs(cuda):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     with pytest.raises(ValueError, match="aligned"):
         global_matching_prepared_int8(q, b._replace(pixels=shifted))
-    q_hat = torch.zeros(64, 128, dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError):            # one scale pair per row
-        global_matching_int8_quantized(
-            q_hat, torch.zeros(63, 2, device=cuda), b)
+
+
+def test_int8_quantizers_divide_as_ieee(cuda):
+    """The quantizers divide by 127 on the card as on the CPU and in JAX
+    (IEEE division; PyTorch's x / 127.0 on a CUDA tensor multiplies by
+    the reciprocal), so the card's plain version quantizes as kernel 3's
+    prologue and the CPU do."""
+    x = 3 * torch.rand(1 << 16, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(_div127(x.to(cuda)).cpu(), x / 127.0)
+    got_q, got_s = quantize_rows_int8(x.reshape(-1, 128).to(cuda))
+    want_q, want_s = quantize_rows_int8(x.reshape(-1, 128))
+    assert torch.equal(got_q.cpu(), want_q) and torch.equal(got_s.cpu(), want_s)
+
+
+def _int8_query(rng, nq, nk, c, case):
+    """Queries (noisy copies of reference rows; for "ties", exact copies
+    of rows of integers and halves times 2^-6 with 127 * 2^-6 at their
+    largest, so that s_q = 2^-6 and every x / s_q of the quantizer is
+    exact, the halves ties) and reference rows."""
+    k = 0.3 * rng.normal(size=(nk, c))
+    q = k[rng.integers(0, nk, size=nq)] + 0.02 * rng.normal(size=(nq, c))
+    if case == "ties":
+        rows = (rng.integers(-126, 127, size=(nk, c))
+                + 0.5 * rng.integers(0, 2, size=(nk, c))) * 2.0 ** -6
+        rows[:, 0] = 127 * 2.0 ** -6
+        q = rows[rng.integers(0, nk, size=nq)]
+        k = rows + 0.02 * rng.normal(size=(nk, c))
+    return q, k
+
+
+@pytest.mark.parametrize("nq,nk,c,o,dtype,case", [
+    (300, 900, 16, 3, torch.float32, "plain"),      # 16 channels, padded
+    (1001, 3000, 100, 4, torch.bfloat16, "plain"),  # the model's 100
+    (777, 2000, 128, 9, torch.float32, "plain"),    # O = 9, ragged tiles
+    (500, 1500, 128, 4, torch.bfloat16, "one_live"),  # 3 objects empty
+    (256, 1000, 128, 4, torch.float32, "ties"),     # halves tie
+    (333, 1200, 128, 4, torch.float32, "unaligned"),  # scalar loads
+])
+def test_int8_fused_quantization_cases(cuda, nq, nk, c, o, dtype, case):
+    """Kernel 3 on its float query: f32 and bf16, C = 16 and 100 padded in
+    the kernel, a ragged last query tile, exact halves, an unaligned query
+    (the scalar load path), all objects but one without rows, O = 9;
+    against `_int8_query` + the plain version, with one walk (S = 1) and
+    with split key ranges giving the same bits."""
+    rng = np.random.default_rng(11)
+    q_np, k_np = _int8_query(rng, nq, nk, c, case)
+    q = torch.tensor(q_np, dtype=dtype, device=cuda)
+    if case == "unaligned":
+        buf = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:].copy_(q.reshape(-1))
+        q = buf[1:].view(nq, c)
+        assert q.is_contiguous() and q.data_ptr() % 16
+    k = torch.tensor(k_np, dtype=torch.bfloat16, device=cuda)
+    live = 1 if case == "one_live" else o
+    labels = rng.integers(0, live, size=nk)
+    onehot = torch.tensor(np.eye(o)[labels], dtype=torch.float32, device=cuda)
+    b = prepare_ref_int8(k, onehot)
+    before = build.LAUNCHES["global_matching_int8"]
+    got = _launch_int8(q, b, 1)
+    split = _launch_int8(q, b, 3)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["global_matching_int8"] == before + 2
+    want = global_matching_prepared_int8_plain(q, b)
+    assert got.shape == (nq, o) and got.dtype == torch.float32
+    assert (want[:, :live] < 0.9).float().mean() > 0.05
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(split, got)
+    if live < o:
+        assert (got[:, live:] == 1.0).all()
+
+
+def test_int8_batch_shape_splits(cuda):
+    """The batch engine's launch (Nq = Nk = 25,920) plans S > 1 on an H100
+    and matches the plain version and the unsplit walk."""
+    rng = np.random.default_rng(12)
+    n = 25920
+    q, k = _noisy_copies(rng, n, n, 100, cuda, torch.bfloat16)
+    onehot = torch.tensor(np.eye(4)[rng.integers(0, 3, size=n)],
+                          dtype=torch.float32, device=cuda)
+    b = prepare_ref_int8(k, onehot)
+    splits = key_splits(n, b, cuda)
+    if torch.cuda.get_device_properties(0).multi_processor_count >= 132:
+        assert splits > 1
+    got = global_matching_prepared_int8(q, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, global_matching_prepared_int8_plain(q, b),
+                               **TOL)
+    assert torch.equal(got, _launch_int8(q, b, 1))
 
 
 @pytest.mark.parametrize("n,dtype", [(1, torch.float32), (2, torch.float32),

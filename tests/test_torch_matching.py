@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_local_ties import local_ties
 from cvpr2020_manet_tpu.ops import local_matching_pallas as jlmp
 from cvpr2020_manet_tpu.ops import matching as jm
 from cvpr2020_manet_tpu.ops import matching_pallas as jmp
@@ -27,7 +28,8 @@ from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
     global_matching_cuda, global_matching_prepared,
     global_matching_prepared_argmin, prepare_ref)
 from cvpr2020_manet_tpu_torch.ops.local_matching_cuda import (
-    local_matching_argmin, local_matching_cuda)
+    ARGMIN_PATCH_ROWS, argmin_patch_rows, local_matching_argmin,
+    local_matching_cuda, prepare_local)
 from cvpr2020_manet_tpu_torch.ops.trainable import (
     GlobalMatchingTrainable, LocalMatchingTrainable)
 
@@ -226,6 +228,59 @@ def test_local_argmin_plain_vs_jax(h, w, c, o, window):
     np.testing.assert_array_equal(got_idx.numpy()[reach],
                                   np.asarray(want_idx)[reach])
     assert (got.numpy()[~reach] == 1.0).all()
+
+
+def test_local_argmin_plain_ties_vs_jax():
+    """Exactly duplicated keys (small multiples of 1/4: every product and
+    sum is exact in both packages, so the ties are ties in both): rows 4
+    apart (the CUDA kernel's 4-row patches) and columns 6 apart across
+    the 16-column tiles' boundaries at 16 and 32, within a w = 6 window
+    and across n8 key tiles. The port's plain argmin (the kernel's oracle
+    on the card) must name JAX's winners and, at every tie, the lowest
+    flat index."""
+    rng = np.random.default_rng(13)
+    h, w, c, o, window = 12, 40, 128, 9, 6
+    k = (rng.integers(-2, 3, size=(h, w, c)) * 0.25).astype(np.float32)
+    labels = rng.integers(0, o - 1, size=(h, w))       # object o-1 is empty
+    for y in range(4, h):                              # rows 4 apart
+        k[y], labels[y] = k[y - 4], labels[y - 4]
+    for x0 in (16, 32):                                # across column tiles
+        k[:, x0:x0 + 6] = k[:, x0 - 6:x0]
+        labels[:, x0:x0 + 6] = labels[:, x0 - 6:x0]
+    q = np.roll(k, (1, -1), axis=(0, 1)).copy()
+    q[..., 0] += 0.25
+    oh = np.eye(o, dtype=np.float32)[labels]
+    want, want_idx = jlmp.local_matching_pallas_argmin(
+        _j(q), _j(k), _j(oh), window=window, interpret=True)
+    got, got_idx = local_matching_argmin(_t(q), _t(k), _t(oh), window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    reach = _has_key_in_window(oh, window)
+    np.testing.assert_array_equal(got_idx.numpy()[reach],
+                                  np.asarray(want_idx)[reach])
+    _, first, count, _ = local_ties(*prepare_local(_t(q), _t(k), _t(oh)),
+                                    window)
+    ties = torch.from_numpy(reach) & (count > 1)
+    assert int(ties.sum()) > h * w                     # many exact ties
+    assert torch.equal(got_idx[ties], first[ties])
+    # some ties are won by a key whose copy lies past a 16-column tile
+    xx = first[ties] % w
+    assert bool((((xx >= 10) & (xx < 16)) | ((xx >= 26) & (xx < 32))).any())
+
+
+@pytest.mark.parametrize("h,w,sms,want", [
+    (52, 52, 132, 2),          # the training crop: 4 x 26 = 104 blocks
+    (60, 108, 132, 4),         # 480p: 7 x 15 = 105 blocks at 4 rows
+    (136, 240, 132, 4),        # 1080p: more blocks than SMs at any rows
+    (12, 40, 132, 1),          # a small frame: 36 blocks of 1 row
+    (52, 52, 60, 4),           # a smaller card
+])
+def test_argmin_patch_rows(h, w, sms, want):
+    """Kernel 5's query rows per patch: the fewest whose grid keeps at
+    most one block per SM."""
+    rows = argmin_patch_rows(h, w, sms)
+    assert rows == want and rows in ARGMIN_PATCH_ROWS
+    blocks = -(-w // 16) * -(-h // rows)
+    assert blocks <= sms or rows == max(ARGMIN_PATCH_ROWS)
 
 
 @pytest.mark.parametrize("empty", [False, True], ids=["live", "empty"])
