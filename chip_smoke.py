@@ -38,6 +38,22 @@ imports nothing of JAX. Phases (any failure exits non-zero):
    serve_int8 — the same session with `matching_backend="int8"`, fed
              uint8 frames: 1 int8 global-matching launch and 15 local ones
              per round, none of the other global kernels;
+   davis   — the DAVIS evaluation CLI (`engine/eval_davis.py`) at the
+             flagship config on a 480p DAVIS tree the script writes
+             (tests/_torch_davis_tree.py: a numpy JPEG encoder, the
+             port's PNG writer): sequences of
+             16 frames / 2 objects and 25 / 3 (frame buckets 16 and 32),
+             2 scribble sets, 8 rounds; the host JPEG and PNG decode ms,
+             then four runs, the counters reset before each: default (1
+             kernel-1 launch a round, bucket - 1 kernel-2 ones), int8
+             (kernel 3 in place of kernel 1), stopped after the first
+             item's checkpoint and run again with --resume, and --host
+             against the port's evaluation server in a thread; the saved
+             PNGs equal the last round's masks, the report has rounds x
+             objects x frames rows an item, and the resumed and remote
+             reports' metric columns equal the default run's; each run's
+             wall time split into the model, the session's J and F
+             scoring with the robot, and the rest;
    stream  — `StreamingIVOS` at 1080p, 2 objects, int8: 3 corrections (4
              live pages), then 8 `observe` and 8 `observe_async` of uint8
              frames and 2 of YUV 4:2:0 frames; 1 int8 global- and 1 local
@@ -913,6 +929,298 @@ def launches_delta(fn):
                  if v != before[k]}
 
 
+# --------------------------------------------------------------------- #
+# The davis phase: the DAVIS evaluation CLI on a DAVIS tree this script
+# writes with tests/_torch_davis_tree.py (480p JPEGs from a numpy baseline
+# encoder, indexed-PNG annotations through the port's writer, scribble
+# JSON, the val split).
+# --------------------------------------------------------------------- #
+
+# (name, frames, objects, seed): frame buckets 16 and 32 of the flagship
+DAVIS_SEQUENCES = (("seq16_2obj", 16, 2, 0), ("seq25_3obj", 25, 3, 1))
+DAVIS_SIZE = (480, 854)
+DAVIS_ROUNDS = 8
+DAVIS_SETS = 2
+
+
+class _StopAfterFirstItem(Exception):
+    """Raised from the progress hook once the second item's first round
+    is handed back: the first item's report checkpoint is on disk."""
+
+
+def davis_cli(argv, stop_after_first_item=False):
+    """`eval_davis.main(argv)` as a user runs it, the launch counters reset
+    just before. -> dict: the JSON line, every round's (sequence, set,
+    round, frame bucket) as the CLI's progress hook sees it, and its
+    seconds on the evaluator's clock, each item's last-round masks,
+    start_sequence times, each submission's scoring and robot time,
+    launches, stderr, wall time and peak memory."""
+    import contextlib
+    import io
+
+    from cvpr2020_manet_tpu_torch.engine import eval_davis
+    from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+    from cvpr2020_manet_tpu_torch.kernels import build
+
+    from cvpr2020_manet_tpu_torch.interactive.session import (
+        InteractiveSession)
+
+    run = {"rounds": [], "round_s": [], "last": {}, "start_s": [],
+           "score_s": [], "stopped": False}
+    real = Evaluator.run_session
+    real_submit = InteractiveSession.submit_masks
+
+    def timed_submit(session, masks):
+        # J and F scoring of the round and the robot's next scribbles, in
+        # the CLI's process or, under --host, in the server's thread
+        t = time.perf_counter()
+        real_submit(session, masks)
+        run["score_s"].append(time.perf_counter() - t)
+
+    def run_session(ev, session, on_masks=None):
+        start_sequence = ev.start_sequence
+
+        def timed_start(*args):
+            t = time.perf_counter()
+            st = start_sequence(*args)
+            torch.cuda.synchronize()
+            run["start_s"].append(time.perf_counter() - t)
+            return st
+        ev.start_sequence = timed_start
+
+        def hook(seq, set_idx, round_idx, masks):
+            if (stop_after_first_item and run["rounds"]
+                    and run["rounds"][0][:2] != (seq, set_idx)):
+                raise _StopAfterFirstItem
+            run["rounds"].append((seq, set_idx, round_idx,
+                                  ev.round_records[-1][0]))
+            run["round_s"].append(ev.round_records[-1][2])
+            run["last"][(seq, set_idx)] = masks
+            on_masks(seq, set_idx, round_idx, masks)
+        try:
+            return real(ev, session, on_masks=hook)
+        finally:
+            # ev -> timed_start -> ev is a cycle: break it, so that the
+            # run's model and states go when the CLI returns, not at the
+            # next garbage collection (the next run's peak memory)
+            del ev.start_sequence
+
+    out, err = io.StringIO(), io.StringIO()
+    Evaluator.run_session = run_session
+    InteractiveSession.submit_masks = timed_submit
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            eval_davis.main(argv)
+    except _StopAfterFirstItem:
+        run["stopped"] = True
+    finally:
+        Evaluator.run_session = real
+        InteractiveSession.submit_masks = real_submit
+    torch.cuda.synchronize()
+    run["wall_s"] = time.perf_counter() - t0
+    run["launches"] = dict(build.LAUNCHES)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    run["stderr"] = err.getvalue()
+    lines = out.getvalue().strip().splitlines()
+    run["line"] = None if run["stopped"] else json.loads(lines[-1])
+    return run
+
+
+def check_davis_launches(name, run, global_kernel, buckets):
+    """Each sequence's rounds in its frame bucket; 1 `global_kernel` launch
+    per round and bucket - 1 local ones (the sweep over the padded
+    bucket), no other kernel."""
+    for seq, _, _, tb in run["rounds"]:
+        require(tb == buckets[seq], f"davis {name}: {seq} ran in frame "
+                f"bucket {tb}, expected {buckets[seq]}")
+    want = {global_kernel: len(run["rounds"]),
+            "local_matching": sum(tb - 1 for *_, tb in run["rounds"])}
+    got = run["launches"]
+    log(f"[davis] {name}: launches {got} over {len(run['rounds'])} rounds")
+    require(got == {k: want.get(k, 0) for k in got},
+            f"davis {name} launches {got}, expected {want}")
+
+
+def davis_metric_rows(report):
+    from cvpr2020_manet_tpu_torch.interactive.session import (
+        REPORT_COLUMNS, read_report_csv)
+    return [[r[c] for c in REPORT_COLUMNS[:-1]]
+            for r in read_report_csv(report)]
+
+
+def davis_phase() -> None:
+    """The DAVIS evaluation CLI at the flagship config on a 480p tree of
+    DAVIS_SEQUENCES, DAVIS_ROUNDS rounds x DAVIS_SETS scribble sets:
+    default (kernels 1 and 2), --matching_int8 (kernels 3 and 2), a run
+    stopped after its first item and resumed, and a run against the port's
+    evaluation server (--host); the resumed and remote reports' metric
+    columns must equal the default run's."""
+    import tempfile
+
+    from cvpr2020_manet_tpu_torch.config import EvalConfig
+    from cvpr2020_manet_tpu_torch.data.davis import DavisEvalDataset
+    from cvpr2020_manet_tpu_torch.interactive.service import serve
+    from cvpr2020_manet_tpu_torch.interactive.session import read_report_csv
+    from cvpr2020_manet_tpu_torch.native.image import read_jpeg
+    from cvpr2020_manet_tpu_torch.utils.colormap import load_indexed_png
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from _torch_davis_tree import write_davis_tree
+
+    t_phase = time.perf_counter()
+    size = f"{DAVIS_SIZE[1]}x{DAVIS_SIZE[0]}"
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "DAVIS")
+        t0 = time.perf_counter()
+        written = write_davis_tree(root, DAVIS_SIZE, DAVIS_SEQUENCES,
+                                   DAVIS_SETS)
+        n_frames = {seq: v[0].shape[0] for seq, v in written.items()}
+        n_obj = {seq: int(v[1].max()) for seq, v in written.items()}
+        # the smallest of the flagship's frame buckets that holds each
+        buckets = {seq: min(b for b in EvalConfig().frame_buckets if b >= n)
+                   for seq, n in n_frames.items()}
+        log(f"[davis] wrote a {size} DAVIS tree ({n_frames} frames, "
+            f"{n_obj} objects, {DAVIS_SETS} scribble sets) in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # the host decoders at 480p, and what they decode
+        seq0 = next(iter(written))
+        jpg = os.path.join(root, "JPEGImages", "480p", seq0, "00000.jpg")
+        png = os.path.join(root, "Annotations", "480p", seq0, "00000.png")
+        dec = read_jpeg(jpg)                    # builds the decoder
+        src = written[seq0][0][0]
+        psnr = 10 * np.log10(255.0 ** 2 / np.mean(
+            (dec.astype(np.float64) - src) ** 2))
+        require(dec.shape == src.shape and psnr > 20,
+                f"JPEG decode: shape {dec.shape}, PSNR {psnr:.1f} dB")
+        require(np.array_equal(load_indexed_png(png), written[seq0][1][0]),
+                "PNG read-back differs from the written label map")
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            read_jpeg(jpg)
+        jpeg_ms = (time.perf_counter() - t0) / reps * 1e3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            load_indexed_png(png)
+        png_ms = (time.perf_counter() - t0) / reps * 1e3
+        log(f"[davis] host decode per {size} frame: JPEG {jpeg_ms:.2f} ms "
+            f"(the port's baseline decoder; PSNR {psnr:.1f} dB against "
+            f"the encoded frame), PNG {png_ms:.2f} ms (zlib + numpy)")
+
+        base = ["--davis_root", root, "--rounds", str(DAVIS_ROUNDS),
+                "--scribble_sets", str(DAVIS_SETS)]
+        report1 = os.path.join(tmp, "r1.csv")
+        masks1 = os.path.join(tmp, "masks1")
+        runs = {}
+        runs["default"] = davis_cli(base + ["--report", report1,
+                                            "--save_masks", masks1])
+        runs["int8"] = davis_cli(base + ["--matching_int8", "--report",
+                                         os.path.join(tmp, "r8.csv")])
+        report3 = os.path.join(tmp, "r3.csv")
+        stopped = davis_cli(base + ["--resume", "--report", report3],
+                            stop_after_first_item=True)
+        require(stopped["stopped"], "the resume run was not stopped")
+        require(len({(r["sequence"], r["scribble_idx"])
+                     for r in read_report_csv(report3)}) == 1,
+                "the stopped run's checkpoint does not hold one item")
+        runs["resumed"] = davis_cli(base + ["--resume", "--report", report3])
+        require("resume: 1 completed items found" in runs["resumed"]["stderr"],
+                "the resumed run did not report 1 completed item")
+        srv, thread = serve(DavisEvalDataset(root, scribble_sets=DAVIS_SETS),
+                            host="127.0.0.1", port=0)
+        try:
+            report4 = os.path.join(tmp, "r4.csv")
+            runs["remote"] = davis_cli(base + [
+                "--host", f"http://127.0.0.1:{srv.server_address[1]}",
+                "--report", report4])
+        finally:
+            srv.shutdown()
+            thread.join(timeout=30)
+        require(not thread.is_alive(), "the evaluation server did not stop")
+
+        for name, run in runs.items():
+            line = run["line"]
+            score = sum(run["score_s"])
+            model = sum(run["round_s"]) + sum(run["start_s"])
+            log(f"[davis] {name}: wall {run['wall_s']:.2f} s, of it "
+                f"{model:.2f} s the model's rounds and start_sequence, "
+                f"{score:.2f} s scoring and robot over "
+                f"{len(run['score_s'])} submissions (p50 "
+                f"{statistics.median(run['score_s']) * 1e3:.1f} ms), "
+                f"{run['wall_s'] - model - score:.2f} s the rest (model "
+                f"build, frame decode, PNG and CSV writes, HTTP); peak "
+                f"device memory {run['peak_gib']:.2f} GiB, start_sequence "
+                + ", ".join(f"{s * 1e3:.1f}" for s in run["start_s"])
+                + f" ms; {line['rounds_run']} rounds, p50 round latency "
+                f"{line['p50_round_latency_s']} s, by frame bucket "
+                f"{line['p50_by_frame_bucket']}; AUC {line['auc']}, "
+                f"J&F@60s {line['jf_at_60s']} (random weights: parity only)")
+            require(line["rounds_run"] == len(run["rounds"]),
+                    f"{name}: rounds_run {line['rounds_run']}")
+            require(set(line["p50_by_frame_bucket"]) == {"16", "32"},
+                    f"{name}: frame buckets {line['p50_by_frame_bucket']}")
+            require(0.0 <= line["auc"] <= 1.0 and np.isfinite(line["auc"]),
+                    f"{name}: AUC {line['auc']}")
+        log(f"[davis] resumed: the stopped run took {stopped['wall_s']:.2f} s "
+            f"over {len(stopped['rounds'])} rounds")
+        check_davis_launches("default", runs["default"], "global_matching",
+                             buckets)
+        check_davis_launches("int8", runs["int8"], "global_matching_int8",
+                             buckets)
+        check_davis_launches("resumed", runs["resumed"], "global_matching",
+                             buckets)
+        check_davis_launches("remote", runs["remote"], "global_matching",
+                             buckets)
+
+        # the default run: final-round PNGs, report rows per item
+        run1 = runs["default"]
+        per_item = _items(run1["rounds"])
+        require(len(run1["last"]) == len(written) * DAVIS_SETS,
+                f"{len(run1['last'])} items ran")
+        for (seq, k), m in run1["last"].items():
+            require(m.shape == written[seq][1].shape and m.dtype == np.int32
+                    and m.min() >= 0 and m.max() <= n_obj[seq],
+                    f"{seq} set {k}: masks {m.shape} {m.dtype}")
+            saved = np.stack([load_indexed_png(os.path.join(
+                masks1, f"scribble{k + 1}", seq, f"{t:05d}.png"))
+                for t in range(n_frames[seq])])
+            require(np.array_equal(saved, m),
+                    f"{seq} set {k}: saved PNGs differ from the last round")
+        rows = read_report_csv(report1)
+        for (seq, k), n in per_item.items():
+            got = sum(r["sequence"] == seq and r["scribble_idx"] == k
+                      for r in rows)
+            require(got == n * n_obj[seq] * n_frames[seq],
+                    f"{seq} set {k}: {got} report rows for {n} rounds")
+        require(all(0.0 <= r["jaccard"] <= 1.0 and 0.0 <= r["contour"] <= 1.0
+                    for r in rows), "J and F in [0, 1]")
+        want = davis_metric_rows(report1)
+        for name, report in (("resumed", report3), ("remote", report4)):
+            got = davis_metric_rows(report)
+            same = sum(a == b for a, b in zip(got, want))
+            log(f"[davis] {name} report: {same} of {len(want)} metric rows "
+                f"equal the default run's ({len(got)} rows)")
+            require(got == want,
+                    f"{name} report's metric columns differ from run 1's")
+        require(len(davis_metric_rows(os.path.join(tmp, "r8.csv")))
+                == sum(n * n_obj[s] * n_frames[s] for (s, _), n in
+                       _items(runs["int8"]["rounds"]).items()),
+                "int8 report rows")
+    log(f"[davis] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _items(rounds):
+    count = {}
+    for seq, k, *_ in rounds:
+        count[(seq, k)] = count.get((seq, k), 0) + 1
+    return count
+
+
 def stream_phase(dev, model_i8, model_f32, image_size=(1080, 1920),
                  corrections=3, timed=8) -> None:
     """StreamingIVOS at 1080p with 2 objects: the int8 stream through
@@ -1599,6 +1907,8 @@ def main() -> int:
     launches["global_matching_int8"] = main_path(
         dev, model_i8, "serve_int8", "global_matching_int8",
         uint8=True)["global_matching_int8"]
+    davis_phase()
+    torch.cuda.empty_cache()
     stream_phase(dev, model_i8, model)
     torch.cuda.empty_cache()
     kernels.append(cp_phase(dev, model))

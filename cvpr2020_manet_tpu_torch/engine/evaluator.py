@@ -231,6 +231,10 @@ class Evaluator:
             check_cp_engine(cp_mesh, self.device, model.matching_backend,
                             "eval")
         self.round_latencies: list[float] = []
+        # (frame bucket, object bucket, seconds) per round: callers report
+        # latency per bucket (DAVIS val spans the 32/64/104 frame buckets;
+        # a global p50 hides the long sequences' cost)
+        self.round_records: list[tuple[int, int, float]] = []
 
     # ---------------- device graph of one round ------------------------ #
 
@@ -481,7 +485,10 @@ class Evaluator:
                         constant_values=-1)
         handle = self.dispatch_round(state, raster, annot, num_objects)
         masks = self.collect_round(handle, image_hw)
-        self.round_latencies.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.round_latencies.append(dt)
+        self.round_records.append(
+            (handle.t_bucket, state.prev_masks.shape[-1], dt))
         return masks
 
     @torch.inference_mode()

@@ -22,7 +22,8 @@ caller can interleave:
 - `drain`: wait for the downloads and unpack.
 
     python -m cvpr2020_manet_tpu_torch.engine.propagate_batch \\
-        --batch 4 --frames 16 [--matching_int8] [--ingest yuv420]
+        --batch 4 --frames 16 [--matching_int8] [--ingest yuv420] \\
+        [--dataset davis --data_root /data/DAVIS]
 
 prints one JSON line (`batched_propagation_fps`). It runs on `cuda`.
 """
@@ -226,8 +227,8 @@ def _download(packed: torch.Tensor) -> np.ndarray:
 
 
 # --------------------------------------------------------------------- #
-# Throughput CLI: fixed (B, T, H, W) batches from the synthetic fixture
-# through BatchPropagator, reported as one JSON metric line.
+# Throughput CLI: fixed (B, T, H, W) batches from the synthetic fixture or
+# a DAVIS tree through BatchPropagator, reported as one JSON metric line.
 # --------------------------------------------------------------------- #
 
 def _load_batches(ds, batch: int, stride: int):
@@ -243,6 +244,39 @@ def _load_batches(ds, batch: int, stride: int):
         fm = [ds.gt_masks(q)[0, ::stride, ::stride] for q in seqs]
         yield (np.stack(fr), np.stack(fm).astype(np.int32),
                np.asarray([ds.num_objects(q) for q in seqs], np.int32))
+
+
+def _load_davis_batches(ds, batch: int, frames: int, image_hw, stride: int):
+    """Yield (frames_u8 (B, T, H, W, 3), first_masks (B, h, w),
+    num_objects (B,)) from an eval-style adapter (a DAVIS tree), as the
+    JAX CLI's loader does: the normalized frames are un-normalized and
+    truncated to uint8, short sequences are padded by repeating the last
+    frame, long ones sliced to `frames`, and the spatial size padded (or
+    cropped) to `image_hw`. The tail yields a smaller final batch."""
+    from cvpr2020_manet_tpu_torch.data.davis import IMAGENET_MEAN, IMAGENET_STD
+    h_img, w_img = image_hw
+    names = ds.sequences()
+    for i in range(0, len(names), batch):
+        fr, fm, no = [], [], []
+        for seq in names[i:i + batch]:
+            imgs = ds.images(seq)      # normalized float (T, H, W, 3)
+            gt = ds.gt_masks(seq)
+            u8 = np.clip((imgs * IMAGENET_STD + IMAGENET_MEAN) * 255.0,
+                         0, 255).astype(np.uint8)
+            t = u8.shape[0]
+            if t < frames:
+                pad = np.repeat(u8[-1:], frames - t, axis=0)
+                u8 = np.concatenate([u8, pad], axis=0)
+            u8 = u8[:frames, :h_img, :w_img]
+            if u8.shape[1:3] != (h_img, w_img):
+                py, px = h_img - u8.shape[1], w_img - u8.shape[2]
+                u8 = np.pad(u8, ((0, 0), (0, py), (0, px), (0, 0)))
+                gt = np.pad(gt, ((0, 0), (0, py), (0, px)))
+            fr.append(u8)
+            fm.append(gt[0, :h_img:stride, :w_img:stride])
+            no.append(ds.num_objects(seq))
+        yield (np.stack(fr), np.stack(fm).astype(np.int32),
+               np.asarray(no, np.int32))
 
 
 def _sync(device: torch.device) -> None:
@@ -292,7 +326,10 @@ def main(argv=None):
     from cvpr2020_manet_tpu_torch.utils.checkpoint import load_release
 
     p = argparse.ArgumentParser()
-    p.add_argument("--dataset", choices=["synthetic"], default="synthetic")
+    p.add_argument("--dataset", choices=["synthetic", "davis"],
+                   default="synthetic")
+    p.add_argument("--data_root", default=None,
+                   help="DAVIS tree (--dataset davis)")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--image_size", type=int, nargs=2, default=None)
@@ -316,10 +353,16 @@ def main(argv=None):
     h_img = image_hw[0] + (-image_hw[0]) % cfg.eval.pad_to
     w_img = image_hw[1] + (-image_hw[1]) % cfg.eval.pad_to
     s = cfg.model.feature_stride
-    ds = SyntheticDataset(
-        image_size=(h_img, w_img), num_frames=args.frames,
-        num_sequences=args.batch * (args.timed_batches + 1),
-        num_objects=2, scribble_sets=1)
+    if args.dataset == "davis":
+        from cvpr2020_manet_tpu_torch.data.davis import DavisEvalDataset
+        gen = _load_davis_batches(DavisEvalDataset(args.data_root),
+                                  args.batch, args.frames, (h_img, w_img), s)
+    else:
+        ds = SyntheticDataset(
+            image_size=(h_img, w_img), num_frames=args.frames,
+            num_sequences=args.batch * (args.timed_batches + 1),
+            num_objects=2, scribble_sets=1)
+        gen = _load_batches(ds, args.batch, s)
 
     device = resolve_device(None)
     model = MANet(cfg.model, device=device, matching_backend=(
@@ -329,8 +372,10 @@ def main(argv=None):
                                            args.checkpoint))
     prop = BatchPropagator(cfg, model, ingest=args.ingest, device=device)
 
-    gen = _load_batches(ds, args.batch, s)
-    first = next(gen)
+    first = next(gen, None)
+    if first is None:
+        raise SystemExit(f"dataset has no sequences "
+                         f"({args.dataset}, root={args.data_root})")
     timed = []
     for batch in gen:
         timed.append(batch)

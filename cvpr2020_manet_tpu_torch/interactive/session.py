@@ -2,9 +2,9 @@
 `davisinteractive.session.DavisInteractiveSession` (SURVEY.md C20, L6).
 
 Copy of the JAX package's `interactive/session.py` without pandas: the
-report is a list of row dicts and the summary is built with numpy, giving
-the same numbers. The DAVIS-backed `DavisInteractiveSession` constructor
-is not part of this package yet.
+report is a list of row dicts, the summary is built with numpy, giving the
+same numbers, and `write_report_csv` / `read_report_csv` write and read
+the CSV that `DataFrame.to_csv(index=False)` writes for the report.
 
 Protocol (HIGH confidence, SURVEY.md §1):
   for each sequence × scribble set:
@@ -22,6 +22,8 @@ API mirrors the external package: context manager, `next()`,
 
 from __future__ import annotations
 
+import csv
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -43,11 +45,16 @@ class InteractiveSession:
                  max_time: Optional[float] = None,
                  metric_to_optimize: str = "J_AND_F",
                  robot: Optional[InteractiveScribblesRobot] = None,
-                 time_fn=time.perf_counter):
+                 time_fn=time.perf_counter,
+                 skip_items=None, seed_rows=None, on_item_end=None):
         """`time_fn` is the clock of the per-round timestamps (tests inject
-        a counter). The JAX package's resume hooks (`skip_items`,
-        `seed_rows`, `on_item_end`) serve its DAVIS CLI, which is not
-        ported yet."""
+        a counter). skip_items/seed_rows/on_item_end RESUME an interrupted
+        run: skip_items is a set of completed (sequence, scribble_idx)
+        pairs dropped from the work queue, seed_rows re-seeds their report
+        rows (so the final summary spans the whole dataset), and
+        on_item_end(sequence, scribble_idx) fires exactly once when an item
+        finishes — the hook callers use to checkpoint the report after
+        every item (engine/eval_davis.py --resume)."""
         self.dataset = dataset
         self.max_interactions = max_interactions
         # davisinteractive semantics: per-(sequence x scribble-set) time
@@ -58,9 +65,13 @@ class InteractiveSession:
         self.metric = metric_to_optimize
         self.robot = robot or InteractiveScribblesRobot()
         self._time = time_fn
+        self.on_item_end = on_item_end
         # (sequence, scribble_set) work queue
+        skip = skip_items or set()
         self._queue = [(s, i) for s in dataset.sequences()
-                       for i in range(dataset.num_scribble_sets(s))]
+                       for i in range(dataset.num_scribble_sets(s))
+                       if (s, i) not in skip]
+        self._seed_rows = list(seed_rows) if seed_rows is not None else []
         self._pos = -1
         self._interaction = 0          # rounds done for current item
         self._scribbles: Optional[Scribbles] = None   # accumulated
@@ -84,6 +95,11 @@ class InteractiveSession:
         if self._awaiting_submit:
             raise RuntimeError("submit_masks() before calling next() again")
         if self._pos < 0 or self._interaction >= self.max_interactions:
+            if self._pos >= 0 and self.on_item_end is not None:
+                # the item at _pos just finished (all rounds done or
+                # stopped early): fires once per item, the last one too,
+                # on the final next() that returns False
+                self.on_item_end(*self._queue[self._pos])
             self._pos += 1
             if self._pos >= len(self._queue):
                 return False
@@ -101,6 +117,12 @@ class InteractiveSession:
     @property
     def current(self):
         return self._queue[self._pos]
+
+    @property
+    def finished(self) -> bool:
+        """True once next() has exhausted the work queue (the report
+        stays queryable; the session accepts no more masks)."""
+        return self._pos >= len(self._queue)
 
     def get_scribbles(self, only_last: bool = False):
         """-> (sequence, scribbles_json, first_scribble)."""
@@ -122,10 +144,11 @@ class InteractiveSession:
 
         self._annotated.extend(annotated_frames(self._last_scribbles))
         for obj in range(1, n_obj + 1):
-            jj = np.array([_iou(masks[t] == obj, gt[t] == obj)
+            m_obj, g_obj = masks == obj, gt == obj
+            jj = np.array([_iou(m_obj[t], g_obj[t])
                            for t in range(gt.shape[0])])
             ff = batched_f_measure(
-                np.where(masks == obj, 1, 0), np.where(gt == obj, 1, 0), 1)
+                m_obj.view(np.uint8), g_obj.view(np.uint8), 1)
             for t in range(gt.shape[0]):
                 self._rows.append(dict(
                     sequence=seq, scribble_idx=set_idx,
@@ -157,8 +180,10 @@ class InteractiveSession:
 
     # -- reporting ----------------------------------------------------------
     def get_report(self) -> List[Dict[str, Any]]:
-        """Per-(round, object, frame) score rows, keyed by REPORT_COLUMNS."""
-        return [{k: row[k] for k in REPORT_COLUMNS} for row in self._rows]
+        """Per-(round, object, frame) score rows, keyed by REPORT_COLUMNS:
+        the seed rows of a resumed run first, then this run's."""
+        return [{k: row[k] for k in REPORT_COLUMNS}
+                for row in self._seed_rows + self._rows]
 
     def get_global_summary(
         self, max_time: float = 240.0, at_threshold: float = 60.0
@@ -215,3 +240,103 @@ def _iou(a: np.ndarray, b: np.ndarray) -> float:
     if union == 0:
         return 1.0
     return float(np.count_nonzero(a & b) / union)
+
+
+# ------------------------------------------------------------ report CSV
+_INT_COLUMNS = ("scribble_idx", "interaction", "object_id", "frame")
+_FLOAT_COLUMNS = ("jaccard", "contour", "timing")
+
+
+def write_report_csv(rows: List[Dict[str, Any]], path: str) -> None:
+    """The report as `pd.DataFrame(rows, columns=REPORT_COLUMNS)
+    .to_csv(path, index=False)` writes it: the header, ints as ints,
+    floats as their shortest round-tripping repr."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(REPORT_COLUMNS)
+        for row in rows:
+            w.writerow([str(row["sequence"])]
+                       + [str(int(row[k])) for k in _INT_COLUMNS]
+                       + [repr(float(row[k])) for k in _FLOAT_COLUMNS])
+
+
+def read_report_csv(path: str) -> List[Dict[str, Any]]:
+    """Rows of a report CSV with their column types restored; floats read
+    back exactly."""
+    with open(path, newline="") as f:
+        reader = csv.DictReader(f)
+        if reader.fieldnames != REPORT_COLUMNS:
+            raise ValueError(f"{path}: columns {reader.fieldnames}, expected "
+                             f"{REPORT_COLUMNS}")
+        return [{"sequence": r["sequence"],
+                 **{k: int(r[k]) for k in _INT_COLUMNS},
+                 **{k: float(r[k]) for k in _FLOAT_COLUMNS}}
+                for r in reader]
+
+
+class DavisInteractiveSession(InteractiveSession):
+    """Constructor parity with
+    `davisinteractive.session.DavisInteractiveSession` (SURVEY.md C20):
+
+        with DavisInteractiveSession(host='localhost',
+                                     davis_root='/data/DAVIS',
+                                     subset='val',
+                                     max_nb_interactions=8,
+                                     max_time=None) as sess:
+            while sess.next(): ...
+
+    As upstream, `host` selects the mode: `'localhost'` (or any non-URL)
+    runs the in-process local service; an `http(s)://` URL returns a
+    `RemoteSession` speaking to an `interactive.service` evaluation server
+    (the server owns dataset, ground truth, robot and the clock; `key`,
+    `davis_root` and `subset` are server-side there). Pass `dataset=` to
+    skip the DAVIS tree and use any adapter (e.g. the synthetic fixture).
+    `save_report_dir`: the local session writes `report.csv` there when
+    the protocol loop closes without an error."""
+
+    def __new__(cls, host: str = "localhost", key: str = "",
+                davis_root: Optional[str] = None, subset: str = "val",
+                max_nb_interactions: int = 8,
+                max_time: Optional[float] = None,
+                metric_to_optimize: str = "J_AND_F",
+                dataset=None, save_report_dir: Optional[str] = None,
+                **kwargs):
+        if isinstance(host, str) and host.startswith(("http://", "https://")):
+            from cvpr2020_manet_tpu_torch.interactive.service import (
+                RemoteSession)
+            if dataset is None and davis_root is not None:
+                # client-local frames (the model side owns the video; the
+                # server owns ground truth and scoring)
+                from cvpr2020_manet_tpu_torch.data.davis import (
+                    DavisEvalDataset)
+                dataset = DavisEvalDataset(davis_root, subset=subset)
+            # not an instance of cls: __init__ below is skipped
+            return RemoteSession(
+                host, max_nb_interactions=max_nb_interactions,
+                max_time=max_time, metric_to_optimize=metric_to_optimize,
+                images=dataset)
+        return super().__new__(cls)
+
+    def __init__(self, host: str = "localhost", key: str = "",
+                 davis_root: Optional[str] = None, subset: str = "val",
+                 max_nb_interactions: int = 8,
+                 max_time: Optional[float] = None,
+                 metric_to_optimize: str = "J_AND_F",
+                 dataset=None, save_report_dir: Optional[str] = None,
+                 **kwargs):
+        if dataset is None:
+            if davis_root is None:
+                raise ValueError("pass davis_root=... or dataset=...")
+            from cvpr2020_manet_tpu_torch.data.davis import DavisEvalDataset
+            dataset = DavisEvalDataset(davis_root, subset=subset)
+        self._save_report_dir = save_report_dir
+        super().__init__(dataset, max_interactions=max_nb_interactions,
+                         max_time=max_time,
+                         metric_to_optimize=metric_to_optimize, **kwargs)
+
+    def __exit__(self, *exc):
+        if self._save_report_dir is not None and exc[0] is None:
+            os.makedirs(self._save_report_dir, exist_ok=True)
+            write_report_csv(self.get_report(), os.path.join(
+                self._save_report_dir, "report.csv"))
+        return super().__exit__(*exc)

@@ -1,8 +1,10 @@
 """Native (C++) host-side kernels, loaded via ctypes.
 
-Lazy build-on-first-import with g++; everything degrades gracefully to the
-pure-Python implementations when no compiler is available (`lib()` returns
-None and callers fall back).
+Lazy build-on-first-import with g++; the metrics and the robot degrade
+gracefully to the pure-Python implementations when no compiler is
+available (`lib()` returns None and callers fall back). The JPEG decoder
+(`image.py`, `jpeg.cpp`) is built the same way into its own library and
+has no fallback.
 
 The .so is built with -march=native, so a cached binary is only valid on
 the CPU that built it: the cache file name carries a tag derived from the
@@ -46,17 +48,28 @@ _lib = None
 _tried = False
 
 
-def _build() -> bool:
+def compile_library(sources: list[str], so: str) -> None:
+    """g++ `sources` into the shared library `so`; raises OSError (no
+    g++) or subprocess.SubprocessError (the build failed)."""
     # each process builds into its own temporary file: processes that
     # build at the same time (parallel test workers) must not rename one
     # another's output away, which would leave one of them without the
     # library for its whole life
-    tmp = f"{_SO}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-           *_SOURCES, "-o", tmp]
+           *sources, "-o", tmp]
+    subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+    os.replace(tmp, so)
+
+
+def needs_build(sources: list[str], so: str) -> bool:
+    return not os.path.exists(so) or os.path.getmtime(so) < max(
+        os.path.getmtime(s) for s in sources)
+
+
+def _build() -> bool:
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp, _SO)
+        compile_library(_SOURCES, _SO)
         return True
     except (OSError, subprocess.SubprocessError):
         return False
@@ -69,10 +82,7 @@ def lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        needs_build = (not os.path.exists(_SO)
-                       or os.path.getmtime(_SO) < max(
-                           os.path.getmtime(s) for s in _SOURCES))
-        if needs_build and not _build():
+        if needs_build(_SOURCES, _SO) and not _build():
             return None
         try:
             handle = ctypes.CDLL(_SO)

@@ -2,6 +2,7 @@
 JAX package, and no silent move to the CPU."""
 
 import ast
+import glob
 import os
 import pathlib
 import subprocess
@@ -31,7 +32,9 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_sources_import_nothing_forbidden():
-    for path in sorted(PKG_DIR.rglob("*.py")):
+    """Every module of the port, and chip_smoke.py."""
+    for path in [*sorted(PKG_DIR.rglob("*.py")),
+                 PKG_DIR.parent / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -40,7 +43,7 @@ def test_port_sources_import_nothing_forbidden():
             else:
                 continue
             bad = [n for n in names if _forbidden(n)]
-            assert not bad, f"{path.relative_to(PKG_DIR)} imports {bad}"
+            assert not bad, f"{path.name} imports {bad}"
 
 
 def test_tiny_round_in_fresh_process_loads_no_jax():
@@ -118,6 +121,54 @@ def test_tiny_round_in_fresh_process_loads_no_jax():
     assert "cvpr2020_manet_tpu_torch" in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
+
+
+def test_davis_cli_in_fresh_process_loads_no_jax(davis_root, tmp_path):
+    """A fresh process decodes a JPEG and a PNG of the DAVIS tree, runs the
+    DAVIS CLI on it (the device resolved to the CPU) with a report, saved
+    masks and --resume, and completes a round trip with the evaluation
+    service; then sys.modules holds nothing of JAX, pandas or PIL."""
+    code = textwrap.dedent(f"""
+        import glob, json, sys
+        import torch
+        from cvpr2020_manet_tpu_torch.data.davis import DavisEvalDataset
+        from cvpr2020_manet_tpu_torch.engine import eval_davis
+        from cvpr2020_manet_tpu_torch.interactive.service import (
+            RemoteSession, serve)
+        from cvpr2020_manet_tpu_torch.native.image import read_jpeg
+        from cvpr2020_manet_tpu_torch.utils.colormap import load_indexed_png
+        root = {str(davis_root)!r}
+        jpg = sorted(glob.glob(root + "/JPEGImages/480p/seq_a/*.jpg"))[0]
+        png = sorted(glob.glob(root + "/Annotations/480p/seq_a/*.png"))[0]
+        assert read_jpeg(jpg).shape == (64, 96, 3)
+        assert load_indexed_png(png).max() == 2
+        eval_davis.resolve_device = lambda device=None: torch.device("cpu")
+        eval_davis.main(["--davis_root", root, "--tiny", "--rounds", "1",
+                         "--scribble_sets", "1", "--max_frames", "4",
+                         "--image_size", "64", "96", "--resume",
+                         "--report", {str(tmp_path / "r.csv")!r},
+                         "--save_masks", {str(tmp_path / "m")!r}])
+        ds = DavisEvalDataset(root, scribble_sets=1)
+        srv, thread = serve(ds)
+        sess = RemoteSession(
+            f"http://127.0.0.1:{{srv.server_address[1]}}",
+            max_nb_interactions=1)
+        while sess.next():
+            seq, _, _ = sess.get_scribbles()
+            sess.submit_masks(ds.gt_masks(seq))
+        assert len(sess.get_report()) == 2 * 2 * 4
+        srv.shutdown()
+        print(" ".join(sorted(sys.modules)))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG_DIR.parent,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    assert "cvpr2020_manet_tpu_torch.engine.eval_davis" in loaded
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+    assert len(glob.glob(str(tmp_path / "m" / "*" / "*" / "*.png"))) == 8
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

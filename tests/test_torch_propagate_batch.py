@@ -162,3 +162,40 @@ def test_cli_prints_metric_on_cpu(monkeypatch, capsys):
         assert rec["device_busy_fraction"] > 0
         assert rec["batch"] == 2 and rec["frames"] == 4
         assert rec["device"] == "cpu"
+
+
+@pytest.mark.parametrize("batch,frames,image_hw", [
+    (2, 4, (64, 96)), (1, 6, (64, 96)), (3, 3, (48, 80)), (2, 5, (80, 112))])
+def test_davis_loader_equals_jax(davis_root, batch, frames, image_hw):
+    """The DAVIS batches (un-normalized and truncated frames, short clips
+    padded with their last frame, long ones sliced, the spatial size
+    padded or cropped) equal the JAX CLI's loader's bit for bit."""
+    from cvpr2020_manet_tpu.data.davis import DavisEvalDataset as JaxDavis
+    from cvpr2020_manet_tpu.engine.propagate_batch import _load_batches
+    from cvpr2020_manet_tpu_torch.data.davis import DavisEvalDataset
+
+    got = list(tpb._load_davis_batches(DavisEvalDataset(davis_root), batch,
+                                       frames, image_hw, 4))
+    want = list(_load_batches(JaxDavis(davis_root), batch, frames, image_hw,
+                              4))
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cli_runs_davis_on_cpu(davis_root, tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(tpb, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    tpb.main(["--tiny", "--dataset", "davis", "--data_root", davis_root,
+              "--batch", "1", "--frames", "4", "--timed_batches", "1",
+              "--image_size", "64", "96"])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"] == "batched_propagation_fps" and rec["value"] > 0
+    assert rec["image_size"] == [64, 96] and rec["timed_batches"] == 1
+    empty = tmp_path / "empty"
+    (empty / "ImageSets" / "2017").mkdir(parents=True)
+    (empty / "ImageSets" / "2017" / "val.txt").write_text("")
+    with pytest.raises(SystemExit, match="dataset has no sequences"):
+        tpb.main(["--tiny", "--dataset", "davis", "--data_root", str(empty)])
