@@ -77,9 +77,18 @@ imports nothing of JAX. Phases (any failure exits non-zero):
 5. train   — the flagship model through `Trainer.train_step` (stage 1,
              TrainConfig() defaults: crop 416, batch 8) for 4 steps and
              `Stage2Trainer.train_step` (crop 416, batch 2, 3 simulated
-             rounds over 3-frame clips) for 3 steps: finite losses, step
-             times, samples/s, peak memory, and the launch counters, reset
-             just before each, must show the argmin kernels at B and 2B
+             rounds over 3-frame clips) for 3 steps on synthetic clips;
+             then the trainers' CLIs on trees the script writes
+             (tests/_torch_davis_tree.py): stage 1 on a 480p DAVIS tree
+             with `--uint8 --grain --grain_workers 4 --snapshot_dir` for 4
+             steps, the loader alone at 0 and 4 workers (samples/s), and
+             the same trainer fed synchronously and through
+             `prefetch_to_device`; stage 2 at batch 2 on a 1280x720
+             YouTube-VOS tree with `--ytvos_root --clip_len 3 --init_from`
+             the stage-1 snapshot for 3 steps (its parameters at its first
+             step equal stage 1's). Every run: finite losses, step times,
+             samples/s, peak memory, and the launch counters, reset just
+             before each, must show the argmin kernels at B and 2B
              launches per stage-1 step and 2 B R F each per stage-2 step
              (the backward recomputes the checkpointed tails and rounds),
              and the serving kernels at none;
@@ -1693,12 +1702,18 @@ def run_trainer(name: str, trainer, cfg, steps: int,
         f"samples/s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{launches} over {steps} steps")
+    check_steps(name, losses, launches, per_step)
+    return {k: launches[k] // steps for k in per_step}
+
+
+def check_steps(name: str, losses, launches, per_step: dict[str, int]):
+    """Finite losses, and over their steps `per_step` launches of each
+    argmin kernel a step and none of the serving kernels."""
     require(all(np.isfinite(losses)), f"{name}: a loss is not finite")
     for kernel, n in launches.items():
-        want = per_step.get(kernel, 0) * steps
+        want = per_step.get(kernel, 0) * len(losses)
         require(n == want, f"{name}: {kernel} launched {n} times, "
                 f"{want} expected")
-    return {k: launches[k] // steps for k in per_step}
 
 
 def train_phase(dev) -> dict[str, int]:
@@ -1725,7 +1740,200 @@ def train_phase(dev) -> dict[str, int]:
                 Stage2Trainer(cfg2, device=dev), cfg2, steps=3,
                 per_step={"global_matching_argmin": n,
                           "local_matching_argmin": n})
+    torch.cuda.empty_cache()
+    train_data_phase(dev)
     return per_step
+
+
+# --------------------------------------------------------------------- #
+# The trainers' CLIs on DAVIS and YouTube-VOS trees this script writes
+# (tests/_torch_davis_tree.py), as a user runs them.
+# --------------------------------------------------------------------- #
+
+# (name, frames, objects, seed)
+TRAIN_DAVIS = (("train_a", 14, 2, 5), ("train_b", 10, 3, 6))
+TRAIN_YTVOS = (("vid_a", 12, 2, 7), ("vid_b", 10, 3, 8))
+YTVOS_SIZE = (720, 1280)
+LOADER_WORKERS = 4
+
+
+def trainer_cli(cli, trainer_cls, argv, per_step: dict[str, int]) -> dict:
+    """`cli.main(argv)` as a user runs it, its stdout kept, the launch
+    counters reset just before: each `train_step` timed to its end (it
+    returns host floats), the loop's walls between step ends (the feed's
+    wait included), the trainer and, at the first step, a copy of its
+    parameters. The launches must be `per_step` a step, finite losses."""
+    import contextlib
+    import io
+
+    from cvpr2020_manet_tpu_torch.kernels import build
+    run = {"step_s": [], "ends": [], "losses": []}
+    real = trainer_cls.train_step
+
+    def timed(trainer, batch):
+        if not run["ends"]:
+            run["trainer"] = trainer
+            run["first_params"] = {k: v.detach().clone() for k, v in
+                                   trainer.model.state_dict().items()}
+        t = time.perf_counter()
+        metrics = real(trainer, batch)
+        torch.cuda.synchronize()
+        run["ends"].append(time.perf_counter())
+        run["step_s"].append(run["ends"][-1] - t)
+        run["losses"].append(metrics["loss"])
+        return metrics
+
+    out = io.StringIO()
+    trainer_cls.train_step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+    finally:
+        trainer_cls.train_step = real
+    run["wall_s"] = time.perf_counter() - t0
+    run["launches"] = dict(build.LAUNCHES)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    run["stdout"] = out.getvalue()
+    check_steps(" ".join(argv), run["losses"], run["launches"], per_step)
+    run["loop_s"] = list(np.diff(run["ends"]))
+    return run
+
+
+def fed_steps(trainer, batches, steps: int, per_step: dict[str, int]):
+    """`steps` steps of `trainer` on the next batches of `batches`, the
+    counters reset just before. -> the loop's walls (the feed's wait
+    included)."""
+    from cvpr2020_manet_tpu_torch.kernels import build
+    build.reset_launches()
+    walls, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(trainer.train_step(next(batches))["loss"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    check_steps("fed steps", losses, dict(build.LAUNCHES), per_step)
+    return walls
+
+
+def loader_rate(it, batches: int, batch: int) -> tuple[float, float]:
+    """(seconds to the iterator's first batch, samples/s of the `batches`
+    batches after it)."""
+    t = time.perf_counter()
+    next(it)
+    first = time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    return first, batches * batch / (time.perf_counter() - t)
+
+
+def train_data_phase(dev) -> None:
+    """Stage 1 through its CLI on a 480p DAVIS tree (`--uint8 --grain`, 4
+    workers, a snapshot), the loader alone, the same trainer fed
+    synchronously and through `prefetch_to_device`; stage 2 through its
+    CLI on a 720p YouTube-VOS tree from the stage-1 snapshot
+    (`--init_from`)."""
+    import tempfile
+
+    from cvpr2020_manet_tpu_torch.config import Config
+    from cvpr2020_manet_tpu_torch.data.grain_pipeline import (
+        make_train_iterator)
+    from cvpr2020_manet_tpu_torch.engine import train_stage1, train_stage2
+    from cvpr2020_manet_tpu_torch.engine.prefetch import prefetch_to_device
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from _torch_davis_tree import write_davis_tree, write_ytvos_tree
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    b = cfg.train.batch_size
+    per_step = {"global_matching_argmin": b, "local_matching_argmin": 2 * b}
+    with tempfile.TemporaryDirectory() as tmp:
+        davis, ytvos = os.path.join(tmp, "DAVIS"), os.path.join(tmp, "yt")
+        snap = os.path.join(tmp, "stage1")
+        t0 = time.perf_counter()
+        write_davis_tree(davis, DAVIS_SIZE, TRAIN_DAVIS, 1)
+        write_ytvos_tree(ytvos, YTVOS_SIZE, TRAIN_YTVOS)
+        log(f"[train] wrote a {DAVIS_SIZE[1]}x{DAVIS_SIZE[0]} DAVIS tree "
+            f"{TRAIN_DAVIS} and a {YTVOS_SIZE[1]}x{YTVOS_SIZE[0]} "
+            f"YouTube-VOS tree {TRAIN_YTVOS} in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # stage 1: the CLI, uint8 batches from 4 loader workers
+        s1 = trainer_cli(train_stage1, train_stage1.Trainer, [
+            "--davis_root", davis, "--uint8", "--grain", "--grain_workers",
+            str(LOADER_WORKERS), "--steps", "4", "--snapshot_dir", snap],
+            per_step)
+        trainer = s1["trainer"]
+        final = {k: v.detach().clone()
+                 for k, v in trainer.model.state_dict().items()}
+        log(f"[train] stage 1 CLI on DAVIS (--uint8 --grain, "
+            f"{LOADER_WORKERS} workers): batch {b}, crop "
+            f"{cfg.train.crop_size}; losses "
+            f"{', '.join(f'{v:.6f}' for v in s1['losses'])}; steps "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in s1['step_s'])} ms, "
+            f"median loop wall after the first "
+            f"{statistics.median(s1['loop_s']) * 1e3:.1f} ms (sync feed); "
+            f"the CLI {s1['wall_s']:.1f} s; peak device memory "
+            f"{s1['peak_gib']:.2f} GiB; launches {s1['launches']}")
+
+        # the loader alone, then the same trainer on its batches: the
+        # synchronous feed and prefetch_to_device, in turns
+        _, rate0 = loader_rate(make_train_iterator(
+            davis, cfg, num_workers=0, emit_uint8=True), 2, b)
+        it = make_train_iterator(davis, cfg, num_workers=LOADER_WORKERS,
+                                 emit_uint8=True, seed=1)
+        first, rate4 = loader_rate(it, 12, b)
+        log(f"[train] loader alone (uint8 DAVIS clips, batch {b}): "
+            f"{rate0:.1f} samples/s in this process, {rate4:.1f} samples/s "
+            f"from {LOADER_WORKERS} workers ({first:.2f} s from their start "
+            f"to the first batch)")
+        # synchronous, prefetched, prefetched, synchronous: 4 steps each
+        torch.cuda.reset_peak_memory_stats()
+        feed = prefetch_to_device(it, dev, size=2)
+        sync = fed_steps(trainer, it, 4, per_step)
+        pre = fed_steps(trainer, feed, 8, per_step)
+        sync += fed_steps(trainer, it, 4, per_step)
+        feed.close()
+        it.close()
+        log(f"[train] stage 1 fed from {LOADER_WORKERS} workers: median "
+            f"step {statistics.median(sync) * 1e3:.1f} ms synchronous "
+            f"(steps {', '.join(f'{t * 1e3:.1f}' for t in sync)}), "
+            f"{statistics.median(pre) * 1e3:.1f} ms through "
+            f"prefetch_to_device (steps "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in pre)}); peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del trainer, s1, it, feed
+        torch.cuda.empty_cache()
+
+        # stage 2: the CLI on YouTube-VOS from the stage-1 snapshot
+        b2, rounds, frames = 2, cfg.train.stage2_rounds, 3
+        n = 2 * b2 * rounds * frames
+        s2 = trainer_cli(train_stage2, train_stage2.Stage2Trainer, [
+            "--ytvos_root", ytvos, "--clip_len", str(frames), "--batch",
+            str(b2), "--init_from", snap, "--steps", "3"],
+            {"global_matching_argmin": n, "local_matching_argmin": n})
+        require("initialized from stage-1 step 4" in s2["stdout"],
+                f"stage 2 --init_from: {s2['stdout'][:300]}")
+        same = all(torch.equal(s2["first_params"][k], v)
+                   for k, v in final.items())
+        require(same and set(s2["first_params"]) == set(final),
+                "stage 2 did not start from stage 1's parameters")
+        log(f"[train] stage 2 CLI on YouTube-VOS ({YTVOS_SIZE[1]}x"
+            f"{YTVOS_SIZE[0]}, --clip_len {frames} --init_from, float "
+            f"batches in this process): batch {b2}; its first step's "
+            f"parameters equal stage 1's last; losses "
+            f"{', '.join(f'{v:.6f}' for v in s2['losses'])}; steps "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in s2['step_s'])} ms, "
+            f"median loop wall after the first "
+            f"{statistics.median(s2['loop_s']) * 1e3:.1f} ms; peak device "
+            f"memory {s2['peak_gib']:.2f} GiB; launches {s2['launches']}")
+    log(f"[train] the data runs took {time.perf_counter() - t_phase:.1f} s")
 
 
 # the port's kernel functions and the names of their template parameters

@@ -23,7 +23,7 @@ caller can interleave:
 
     python -m cvpr2020_manet_tpu_torch.engine.propagate_batch \\
         --batch 4 --frames 16 [--matching_int8] [--ingest yuv420] \\
-        [--dataset davis --data_root /data/DAVIS]
+        [--dataset davis|ytvos --data_root /data/DAVIS]
 
 prints one JSON line (`batched_propagation_fps`). It runs on `cuda`.
 """
@@ -228,7 +228,8 @@ def _download(packed: torch.Tensor) -> np.ndarray:
 
 # --------------------------------------------------------------------- #
 # Throughput CLI: fixed (B, T, H, W) batches from the synthetic fixture or
-# a DAVIS tree through BatchPropagator, reported as one JSON metric line.
+# a DAVIS or YouTube-VOS tree through BatchPropagator, reported as one JSON
+# metric line.
 # --------------------------------------------------------------------- #
 
 def _load_batches(ds, batch: int, stride: int):
@@ -246,9 +247,11 @@ def _load_batches(ds, batch: int, stride: int):
                np.asarray([ds.num_objects(q) for q in seqs], np.int32))
 
 
-def _load_davis_batches(ds, batch: int, frames: int, image_hw, stride: int):
+def _load_adapter_batches(ds, batch: int, frames: int, image_hw,
+                          stride: int):
     """Yield (frames_u8 (B, T, H, W, 3), first_masks (B, h, w),
-    num_objects (B,)) from an eval-style adapter (a DAVIS tree), as the
+    num_objects (B,)) from an eval-style adapter (a DAVIS or YouTube-VOS
+    tree), as the
     JAX CLI's loader does: the normalized frames are un-normalized and
     truncated to uint8, short sequences are padded by repeating the last
     frame, long ones sliced to `frames`, and the spatial size padded (or
@@ -326,10 +329,10 @@ def main(argv=None):
     from cvpr2020_manet_tpu_torch.utils.checkpoint import load_release
 
     p = argparse.ArgumentParser()
-    p.add_argument("--dataset", choices=["synthetic", "davis"],
+    p.add_argument("--dataset", choices=["synthetic", "davis", "ytvos"],
                    default="synthetic")
     p.add_argument("--data_root", default=None,
-                   help="DAVIS tree (--dataset davis)")
+                   help="DAVIS or YouTube-VOS tree (--dataset davis|ytvos)")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--image_size", type=int, nargs=2, default=None)
@@ -353,10 +356,15 @@ def main(argv=None):
     h_img = image_hw[0] + (-image_hw[0]) % cfg.eval.pad_to
     w_img = image_hw[1] + (-image_hw[1]) % cfg.eval.pad_to
     s = cfg.model.feature_stride
-    if args.dataset == "davis":
-        from cvpr2020_manet_tpu_torch.data.davis import DavisEvalDataset
-        gen = _load_davis_batches(DavisEvalDataset(args.data_root),
-                                  args.batch, args.frames, (h_img, w_img), s)
+    if args.dataset in ("davis", "ytvos"):
+        if args.dataset == "davis":
+            from cvpr2020_manet_tpu_torch.data.davis import DavisEvalDataset
+            ds = DavisEvalDataset(args.data_root)
+        else:
+            from cvpr2020_manet_tpu_torch.data.ytvos import YTVOSDataset
+            ds = YTVOSDataset(args.data_root)
+        gen = _load_adapter_batches(ds, args.batch, args.frames,
+                                    (h_img, w_img), s)
     else:
         ds = SyntheticDataset(
             image_size=(h_img, w_img), num_frames=args.frames,

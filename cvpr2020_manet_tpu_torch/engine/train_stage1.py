@@ -20,16 +20,25 @@ tail's recompute during the backward.
 
     python -m cvpr2020_manet_tpu_torch.engine.train_stage1 --synthetic \\
         --steps 20 [--tiny]
+    python -m cvpr2020_manet_tpu_torch.engine.train_stage1 \\
+        --davis_root DAVIS --uint8 --grain --grain_workers 4
 
-Left out for now (ROADMAP): DAVIS / YouTube-VOS data, the uint8 ingest,
-and multi-device training.
+Data: synthetic moving squares by default, or DAVIS clips (`--davis_root`,
+`data/davis.DavisTrainDataset`), in this process or from worker processes
+(`--grain`, `data/grain_pipeline.py`). With `--uint8` the host ships raw
+uint8 frames and labels and `ingest_batch` normalizes them on the device
+at the top of the step (4x fewer upload bytes).
+
+Left out for now (ROADMAP): multi-process and context-parallel training
+(`--distributed` and its flags raise).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Dict
+import itertools
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
@@ -43,6 +52,7 @@ from cvpr2020_manet_tpu_torch.engine.losses import (
 from cvpr2020_manet_tpu_torch.engine.train_state import TrainState
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 from cvpr2020_manet_tpu_torch.models.manet import MANet
+from cvpr2020_manet_tpu_torch.utils.ingest import preprocess_frames
 
 
 def _downsample_onehot(labels: torch.Tensor, stride: int, o: int
@@ -50,6 +60,21 @@ def _downsample_onehot(labels: torch.Tensor, stride: int, o: int
     """(H, W) int -> (H/s, W/s, O) f32 one-hot via nearest subsampling."""
     sub = labels[stride // 2::stride, stride // 2::stride]
     return F.one_hot(sub.long(), o).float()
+
+
+def ingest_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Device-side batch ingest at the top of the step: uint8 images ->
+    ImageNet-normalized f32 (`utils/ingest.preprocess_frames`), labels of
+    another dtype -> int32, so that the host can ship 4x fewer image and
+    label bytes. Float batches pass through unchanged. On the CPU it equals
+    JAX's bit for bit; on a CUDA tensor PyTorch divides by 255 as a multiply
+    by the reciprocal, which may differ in the last bit."""
+    out = dict(batch)
+    if batch["images"].dtype == torch.uint8:
+        out["images"] = preprocess_frames(batch["images"])
+    if batch["labels"].dtype != torch.int32:
+        out["labels"] = batch["labels"].to(torch.int32)
+    return out
 
 
 def encode_batch(model: MANet, images: torch.Tensor, remat_chunk: int = 0):
@@ -121,6 +146,7 @@ def make_loss_fn(model: MANet, cfg: Config):
     s = cfg.model.feature_stride
 
     def loss_fn(batch, step: int):
+        batch = ingest_batch(batch)
         ratio = bootstrap_ratio_schedule(step, tcfg.bootstrap_warmup_steps,
                                          tcfg.bootstrap_ratio)
         feat, emb = encode_batch(model, batch["images"],
@@ -173,6 +199,9 @@ def make_train_step(model: MANet, cfg: Config):
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
+    """Host batch -> tensors on `device` in their own dtypes (uint8 stays
+    uint8: `ingest_batch` converts on the device); tensors already there
+    pass through."""
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
@@ -190,21 +219,26 @@ class Trainer:
         self._step = make_train_step(self.model, cfg)
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
-        """One optimizer step on a host batch (numpy arrays)."""
+        """One optimizer step on a batch of numpy arrays (or of tensors
+        already on the device, e.g. from `engine/prefetch.py`)."""
         return self._step(self.state, to_device(batch, self.device))
 
 
 def synthetic_batch(cfg: Config, rng: np.random.Generator,
                     num_objects: int | None = None,
-                    random_entry: bool = False) -> Dict[str, np.ndarray]:
+                    random_entry: bool = False,
+                    as_uint8: bool = False,
+                    batch_size: int | None = None) -> Dict[str, np.ndarray]:
     """Random moving-square triplets (smoke training / tests), the same
     arrays as the JAX package's `synthetic_batch` from the same `rng`.
 
     num_objects: objects per clip (default 2, capped by the bucket).
     random_entry: each object's first visible frame is drawn over the clip,
-    so the model also trains on objects absent from the reference frame."""
+    so the model also trains on objects absent from the reference frame.
+    as_uint8: raw uint8 images and labels for the device-side ingest
+    (`ingest_batch`). batch_size: overrides cfg.train.batch_size."""
     from cvpr2020_manet_tpu_torch.data.synthetic import SyntheticDataset
-    b = cfg.train.batch_size
+    b = cfg.train.batch_size if batch_size is None else batch_size
     h, w = cfg.train.crop_size
     o = cfg.model.max_objects + 1
     n_obj = (min(2, cfg.model.max_objects) if num_objects is None
@@ -223,6 +257,12 @@ def synthetic_batch(cfg: Config, rng: np.random.Generator,
         labels[i] = ds.gt_masks(seq)
     obj_valid = np.zeros((b, o), np.float32)
     obj_valid[:, :n_obj + 1] = 1.0
+    if as_uint8:
+        from cvpr2020_manet_tpu_torch.data.davis import (
+            IMAGENET_MEAN, IMAGENET_STD)
+        images = np.clip((images * IMAGENET_STD + IMAGENET_MEAN) * 255.0,
+                         0, 255).astype(np.uint8)
+        labels = labels.astype(np.uint8)
     return {"images": images, "labels": labels, "obj_valid": obj_valid,
             "frame_valid": np.ones((b, 3), np.float32)}
 
@@ -247,14 +287,33 @@ def add_train_override_args(p: argparse.ArgumentParser) -> None:
                    help="dir to export an immutable release checkpoint "
                         "of the final params")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on synthetic clips (the only data source "
-                        "ported so far)")
+                   help="train on synthetic clips (the default without "
+                        "--davis_root)")
     p.add_argument("--tiny", action="store_true",
                    help="tiny_test_config() instead of the flagship Config()")
     p.add_argument("--log_dir", default=None,
                    help="append metrics to <log_dir>/metrics.jsonl")
     p.add_argument("--snapshot_dir", default=None,
                    help="checkpoint dir (resumes if it has snapshots)")
+    p.add_argument("--davis_root", default=None,
+                   help="train on DAVIS clips (data/davis.py) instead of "
+                        "synthetic")
+    p.add_argument("--grain", action="store_true",
+                   help="sample in worker processes "
+                        "(data/grain_pipeline.py; needs a dataset root)")
+    p.add_argument("--grain_workers", type=int, default=4)
+    p.add_argument("--shard_index", type=int, default=0,
+                   help="this process's data shard")
+    p.add_argument("--shard_count", type=int, default=1)
+    p.add_argument("--uint8", action="store_true",
+                   help="ship raw uint8 batches; normalize on the device "
+                        "(ingest_batch): 4x fewer upload bytes")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process training: not ported yet (ROADMAP "
+                        "queue 1 item 7); raises")
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
 
 
 def apply_train_overrides(cfg: Config, args) -> Config:
@@ -274,13 +333,58 @@ def apply_train_overrides(cfg: Config, args) -> Config:
 
 
 def base_config(args) -> Config:
+    if (args.distributed or args.coordinator is not None
+            or args.num_processes is not None or args.process_id is not None):
+        raise NotImplementedError(
+            "multi-process training (--distributed, --coordinator, "
+            "--num_processes, --process_id) is not ported yet: ROADMAP.md "
+            "queue 1 item 7")
     return apply_train_overrides(
         tiny_test_config() if args.tiny else Config(), args)
 
 
-def run_training(trainer, args) -> None:
+def make_feed(cfg: Config, args, clip_len: int = 3,
+              adapter=None) -> Iterator[Dict[str, np.ndarray]]:
+    """The CLIs' host batches, as the JAX trainers' `main` picks them:
+    `--grain` workers over the dataset (shards by clip index), else the
+    sampler in this process (seed + shard_index, and `shard=` only when
+    `--shard_count` > 1), else synthetic clips. `adapter` is a dataset in
+    place of the DAVIS tree at `--davis_root` (stage 2's YouTube-VOS)."""
+    b = cfg.train.batch_size
+    seed = cfg.train.seed + args.shard_index
+    has_data = args.davis_root is not None or adapter is not None
+    if args.grain:
+        if not has_data:
+            raise ValueError("--grain needs a dataset root (--davis_root, "
+                             "or stage 2's --ytvos_root)")
+        from cvpr2020_manet_tpu_torch.data.grain_pipeline import (
+            make_train_iterator)
+        return make_train_iterator(
+            args.davis_root or "", cfg, clip_len=clip_len,
+            num_workers=args.grain_workers, seed=cfg.train.seed,
+            shard_index=args.shard_index, shard_count=args.shard_count,
+            emit_uint8=args.uint8, adapter=adapter)
+    if has_data:
+        from cvpr2020_manet_tpu_torch.data.davis import DavisTrainDataset
+        ds = DavisTrainDataset(
+            args.davis_root or "", cfg, clip_len=clip_len, adapter=adapter,
+            seed=seed, emit_uint8=args.uint8,
+            shard=((args.shard_index, args.shard_count)
+                   if args.shard_count > 1 else None))
+        return (ds.batch(b) for _ in itertools.count())
+    rng = np.random.default_rng(seed)
+    return (synthetic_batch(cfg, rng, num_objects=args.objects,
+                            random_entry=args.random_entry,
+                            as_uint8=args.uint8)
+            for _ in itertools.count())
+
+
+def run_training(trainer, args, batches: Iterator[Dict[str, np.ndarray]]
+                 ) -> None:
     """The loop both CLIs share: resume from `--snapshot_dir`, train
-    `--steps` steps on synthetic batches, log, checkpoint, export."""
+    `--steps` steps on the next batches of `batches` (fed synchronously, as
+    in JAX), log, checkpoint, export; closes `batches` at the end (a
+    worker feed stops its workers)."""
     from cvpr2020_manet_tpu_torch.utils.checkpoint import (
         CheckpointManager, export_release)
     from cvpr2020_manet_tpu_torch.utils.logging import MetricLogger
@@ -291,20 +395,20 @@ def run_training(trainer, args) -> None:
         if mgr.latest_step() is not None:
             mgr.restore(trainer.state)
             print(f"resumed from step {trainer.state.step}")
-    rng = np.random.default_rng(cfg.train.seed)
     start = trainer.state.step
     logger = MetricLogger(args.log_dir)
     try:
         for step in range(start, start + args.steps):
-            metrics = trainer.train_step(synthetic_batch(
-                cfg, rng, num_objects=args.objects,
-                random_entry=args.random_entry))
+            metrics = trainer.train_step(next(batches))
             if step % max(1, cfg.train.log_every // 10) == 0:
                 logger.write(step, metrics)
             if mgr is not None and (step + 1) % cfg.train.checkpoint_every == 0:
                 mgr.save(trainer.state)
     finally:
         logger.close()
+        close = getattr(batches, "close", None)
+        if close is not None:
+            close()
     if mgr is not None:
         mgr.save(trainer.state)
     if args.release:
@@ -316,7 +420,9 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     add_train_override_args(p)
     args = p.parse_args(argv)
-    run_training(Trainer(base_config(args)), args)
+    cfg = base_config(args)
+    trainer = Trainer(cfg)
+    run_training(trainer, args, make_feed(cfg, args))
 
 
 if __name__ == "__main__":

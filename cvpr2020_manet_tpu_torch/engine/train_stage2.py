@@ -14,6 +14,15 @@ backward reruns each round, so per step each kernel launches
 
     python -m cvpr2020_manet_tpu_torch.engine.train_stage2 --synthetic \\
         --steps 5 [--tiny] [--sim_rounds R] [--gmap_memory]
+    python -m cvpr2020_manet_tpu_torch.engine.train_stage2 \\
+        --ytvos_root YTVOS --clip_len 6 --uint8 --init_from STAGE1_SNAPSHOTS
+
+Data as in stage 1 (`train_stage1.make_feed`), plus YouTube-VOS clips
+(`--ytvos_root`, `data/ytvos.py`) and `--clip_len` frames a clip (a
+shorter sequence is padded, `frame_valid` marking its real frames: padded
+frames are never the annotated one and carry no loss). `--init_from`
+starts from a stage-1 snapshot's parameters, with a fresh optimizer and
+step.
 
 Randomness: each sample gets a seed from the trainer's `torch.Generator`,
 and each round draws its strokes from a generator seeded from it, so the
@@ -39,7 +48,7 @@ from cvpr2020_manet_tpu_torch.engine.losses import (
     bootstrap_ratio_schedule, bootstrapped_cross_entropy)
 from cvpr2020_manet_tpu_torch.engine.train_stage1 import (
     _downsample_onehot, add_train_override_args, base_config, encode_batch,
-    run_training, step_with, to_device)
+    ingest_batch, make_feed, run_training, step_with, to_device)
 from cvpr2020_manet_tpu_torch.engine.train_state import TrainState
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 from cvpr2020_manet_tpu_torch.models.manet import NEG_INF, MANet
@@ -193,6 +202,7 @@ def make_loss_fn(model: MANet, cfg: Config):
     tcfg = cfg.train
 
     def loss_fn(batch, step: int, seeds):
+        batch = ingest_batch(batch)
         ratio = bootstrap_ratio_schedule(step, tcfg.bootstrap_warmup_steps,
                                          tcfg.bootstrap_ratio)
         feat, emb = encode_batch(model, batch["images"],
@@ -228,7 +238,7 @@ def make_train_step(model: MANet, cfg: Config):
 class Stage2Trainer:
     """Stage-2 trainer on one device (`cuda` unless `device` says
     otherwise). Start it from stage-1 weights with
-    `trainer.model.load_state_dict(...)`."""
+    `CheckpointManager(stage1_dir).restore_params(trainer.model)`."""
 
     def __init__(self, cfg: Config, device=None, seed: int | None = None):
         self.cfg = cfg
@@ -241,7 +251,8 @@ class Stage2Trainer:
         self._step = make_train_step(self.model, cfg)
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
-        """One optimizer step on a host batch (numpy arrays)."""
+        """One optimizer step on a batch of numpy arrays (or of tensors
+        already on the device)."""
         b = batch["images"].shape[0]
         seeds = torch.randint(1 << 62, (b,), generator=self._gen).tolist()
         return self._step(self.state, to_device(batch, self.device), seeds)
@@ -260,6 +271,13 @@ def main(argv=None):
     p.add_argument("--no_gmap_memory", action="store_true",
                    help="the default; kept so that existing command lines "
                         "run")
+    p.add_argument("--ytvos_root", default=None,
+                   help="train on YouTube-VOS clips (data/ytvos.py)")
+    p.add_argument("--clip_len", type=int, default=3,
+                   help="frames per clip (the rounds propagate over the "
+                        "clip; short sequences pad, with frame_valid)")
+    p.add_argument("--init_from", default=None,
+                   help="stage-1 snapshot dir to take the parameters from")
     args = p.parse_args(argv)
     cfg = base_config(args)
     tr = {}
@@ -270,7 +288,22 @@ def main(argv=None):
     if tr:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, **tr))
-    run_training(Stage2Trainer(cfg), args)
+    trainer = Stage2Trainer(cfg)
+    adapter = None
+    if args.ytvos_root:
+        from cvpr2020_manet_tpu_torch.data.ytvos import YTVOSDataset
+        adapter = YTVOSDataset(args.ytvos_root)
+    batches = make_feed(cfg, args, clip_len=args.clip_len, adapter=adapter)
+    if args.init_from:
+        # stage 2 starts from the stage-1 snapshot's parameters; the
+        # optimizer and the step start fresh (a --snapshot_dir resume in
+        # run_training still wins)
+        from cvpr2020_manet_tpu_torch.utils.checkpoint import (
+            CheckpointManager)
+        step = CheckpointManager(args.init_from).restore_params(
+            trainer.model)
+        print(f"initialized from stage-1 step {step}")
+    run_training(trainer, args, batches)
 
 
 if __name__ == "__main__":

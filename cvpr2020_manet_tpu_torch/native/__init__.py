@@ -3,8 +3,8 @@
 Lazy build-on-first-import with g++; the metrics and the robot degrade
 gracefully to the pure-Python implementations when no compiler is
 available (`lib()` returns None and callers fall back). The JPEG decoder
-(`image.py`, `jpeg.cpp`) is built the same way into its own library and
-has no fallback.
+and the training sampler's resize (`image.py`: `jpeg.cpp`, `resize.cpp`)
+are built the same way into their own library and have no fallback.
 
 The .so is built with -march=native, so a cached binary is only valid on
 the CPU that built it: the cache file name carries a tag derived from the
@@ -48,15 +48,17 @@ _lib = None
 _tried = False
 
 
-def compile_library(sources: list[str], so: str) -> None:
-    """g++ `sources` into the shared library `so`; raises OSError (no
-    g++) or subprocess.SubprocessError (the build failed)."""
+def compile_library(sources: list[str], so: str,
+                    flags: tuple[str, ...] = ()) -> None:
+    """g++ `sources` (with the extra `flags`) into the shared library
+    `so`; raises OSError (no g++) or subprocess.SubprocessError (the build
+    failed)."""
     # each process builds into its own temporary file: processes that
     # build at the same time (parallel test workers) must not rename one
     # another's output away, which would leave one of them without the
     # library for its whole life
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", *flags,
            *sources, "-o", tmp]
     subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     os.replace(tmp, so)

@@ -3,11 +3,15 @@ trainer at the flagship width, split into its forward, backward and
 optimizer update. It is the source of the training breakdown in PERF.md
 ("Where the time goes").
 
-    python -m cvpr2020_manet_tpu_torch.profile_train [--out PATH]
+    python -m cvpr2020_manet_tpu_torch.profile_train [--out PATH] \\
+        [--davis_root DAVIS] [--ytvos_root YTVOS] [--uint8]
 
 Stage 1 is `Trainer(Config())` (TrainConfig() defaults: crop 416, batch
 8); stage 2 is `Stage2Trainer` at batch 2 (3 simulated rounds over 3-frame
-clips), as `chip_smoke.py` runs them. Each trainer takes `WARM_STEPS`
+clips), as `chip_smoke.py` runs them. Their batches are synthetic, or
+clips of the DAVIS tree (stage 1) and of the YouTube-VOS tree (stage 2)
+from the training sampler, uint8 with `--uint8` (normalized on the device
+inside the traced forward). Each trainer takes `WARM_STEPS`
 untraced steps, then one step under torch.profiler (CPU + CUDA
 activities), with a synchronise after each phase. Per phase it prints the
 wall time, the device-busy time (the sum of kernel durations on the one
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import time
 from collections import defaultdict
@@ -97,9 +102,33 @@ def profile_step(trainer, loss_fn, batch, *args) -> dict:
             for p in PHASES}
 
 
+def feed(cfg, davis_root, ytvos_root, uint8: bool):
+    """Synthetic batches, or the sampler's over a DAVIS or YouTube-VOS
+    tree (in this process)."""
+    from cvpr2020_manet_tpu_torch.engine.train_stage1 import synthetic_batch
+    if davis_root is None and ytvos_root is None:
+        rng = np.random.default_rng(cfg.train.seed)
+        return (synthetic_batch(cfg, rng) for _ in itertools.count())
+    from cvpr2020_manet_tpu_torch.data.grain_pipeline import (
+        make_train_iterator)
+    adapter = None
+    if ytvos_root is not None:
+        from cvpr2020_manet_tpu_torch.data.ytvos import YTVOSDataset
+        adapter = YTVOSDataset(ytvos_root)
+    return make_train_iterator(davis_root or "", cfg, num_workers=0,
+                               seed=cfg.train.seed, emit_uint8=uint8,
+                               adapter=adapter)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--davis_root", default=None,
+                    help="stage-1 batches from this DAVIS tree's sampler")
+    ap.add_argument("--ytvos_root", default=None,
+                    help="stage-2 batches from this YouTube-VOS tree")
+    ap.add_argument("--uint8", action="store_true",
+                    help="uint8 batches from the trees (device ingest)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
@@ -115,10 +144,12 @@ def main(argv=None) -> dict:
             ("stage1", train_stage1, train_stage1.Trainer, cfg1),
             ("stage2", train_stage2, train_stage2.Stage2Trainer, cfg2)):
         trainer = trainer_cls(cfg, device="cuda")
-        rng = np.random.default_rng(cfg.train.seed)
+        batches = feed(cfg, args.davis_root if name == "stage1" else None,
+                       args.ytvos_root if name == "stage2" else None,
+                       args.uint8)
         for _ in range(WARM_STEPS):
-            trainer.train_step(train_stage1.synthetic_batch(cfg, rng))
-        batch = train_stage1.synthetic_batch(cfg, rng)
+            trainer.train_step(next(batches))
+        batch = next(batches)
         args_ = ()
         if name == "stage2":
             args_ = ([int(s) for s in np.random.default_rng(1).integers(
@@ -126,10 +157,12 @@ def main(argv=None) -> dict:
         phases = profile_step(trainer, module.make_loss_fn(trainer.model, cfg),
                               batch, *args_)
         result[name] = {"batch": cfg.train.batch_size,
-                        "crop": list(cfg.train.crop_size), **phases}
+                        "crop": list(cfg.train.crop_size),
+                        "images": str(batch["images"].dtype), **phases}
         total = sum(p["wall_ms"] for p in phases.values())
         print(f"[profile] {result['device']} {name}: batch "
-              f"{cfg.train.batch_size}, step {total:.1f} ms wall")
+              f"{cfg.train.batch_size}, {batch['images'].dtype} images, "
+              f"step {total:.1f} ms wall")
         for phase, p in phases.items():
             print(f"[profile]  {phase}: {p['wall_ms']:.1f} ms wall, device "
                   f"busy {p['device_busy_ms']:.1f} ms (idle share "

@@ -3,7 +3,8 @@
 Step checkpoints with retention, as the JAX package keeps them with orbax:
 `<dir>/<step>/state.pt` holds the model's, the optimizer's and the LR
 schedule's state dicts and the step count (`torch.save`), and only the
-newest `max_to_keep` steps stay. Plus an immutable params-only "release"
+newest `max_to_keep` steps stay; `restore_params` takes the model's part
+alone (stage 2's `--init_from`). Plus an immutable params-only "release"
 export (`<dir>/params.pt`).
 
 A checkpoint is written to a temporary file and renamed into place, so a
@@ -56,21 +57,33 @@ class CheckpointManager:
         for old in self.all_steps()[:-self._max_to_keep]:
             shutil.rmtree(os.path.join(self._dir, str(old)))
 
+    def _load(self, model: torch.nn.Module, step: int | None) -> dict:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self._dir}")
+        device = next(model.parameters()).device
+        return torch.load(os.path.join(self._dir, str(step), _STATE),
+                          map_location=device, weights_only=True)
+
     def restore(self, state: TrainState, step: int | None = None
                 ) -> TrainState:
         """Load a step (the latest unless given) into `state` in place;
         returns it."""
-        step = self.latest_step() if step is None else step
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint in {self._dir}")
-        device = next(state.model.parameters()).device
-        payload = torch.load(os.path.join(self._dir, str(step), _STATE),
-                             map_location=device, weights_only=True)
+        payload = self._load(state.model, step)
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.scheduler.load_state_dict(payload["scheduler"])
         state.step = int(payload["step"])
         return state
+
+    def restore_params(self, model: torch.nn.Module,
+                       step: int | None = None) -> int:
+        """Load only the model's part of a step (the latest unless given)
+        into `model` in place; an optimizer over its parameters keeps its
+        own state. Returns the step it was saved at."""
+        payload = self._load(model, step)
+        model.load_state_dict(payload["model"])
+        return int(payload["step"])
 
 
 def export_release(params: Mapping[str, torch.Tensor], directory: str) -> None:

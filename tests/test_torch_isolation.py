@@ -171,6 +171,55 @@ def test_davis_cli_in_fresh_process_loads_no_jax(davis_root, tmp_path):
     assert len(glob.glob(str(tmp_path / "m" / "*" / "*" / "*.png"))) == 8
 
 
+def test_training_data_in_fresh_process_loads_no_jax(davis_root, tmp_path):
+    """A fresh process samples DAVIS and YouTube-VOS clips through the
+    training loader with one spawned worker, prefetches them and runs a
+    tiny uint8 stage-1 step (the device resolved to the CPU); neither the
+    process nor the worker holds anything of JAX, pandas or PIL."""
+    tests = pathlib.Path(__file__).parent
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(tests)!r})
+        import numpy as np
+        from _torch_davis_tree import write_ytvos_tree
+        from _torch_loader_probe import ModulesProbe
+        from cvpr2020_manet_tpu_torch.config import tiny_test_config
+        from cvpr2020_manet_tpu_torch.data.davis import DavisTrainDataset
+        from cvpr2020_manet_tpu_torch.data.grain_pipeline import (
+            iterate, make_train_iterator)
+        from cvpr2020_manet_tpu_torch.data.ytvos import YTVOSDataset
+        from cvpr2020_manet_tpu_torch.engine.prefetch import (
+            prefetch_to_device)
+        from cvpr2020_manet_tpu_torch.engine.train_stage1 import Trainer
+        cfg = tiny_test_config()
+        ds = DavisTrainDataset({str(davis_root)!r}, cfg, emit_uint8=True)
+        it = iterate(ModulesProbe(ds, 2, 0, 100, 0, 1), 1)
+        worker = next(it).pop("modules")
+        it.close()
+        yt = {str(tmp_path / "yt")!r}
+        write_ytvos_tree(yt, (64, 96), [("v1", 4, 2, 0)])
+        batches = make_train_iterator("", cfg, num_workers=0,
+                                      emit_uint8=True,
+                                      adapter=YTVOSDataset(yt))
+        batch = next(prefetch_to_device(batches, "cpu"))
+        assert np.isfinite(Trainer(cfg, device="cpu").train_step(
+            batch)["loss"])
+        print(" ".join(sorted(sys.modules)))
+        print(worker)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG_DIR.parent,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    parent, worker = (line.split() for line in
+                      out.stdout.strip().splitlines()[-2:])
+    assert "cvpr2020_manet_tpu_torch.data.grain_pipeline" in parent
+    assert "cvpr2020_manet_tpu_torch.data.davis" in worker
+    for loaded in (parent, worker):
+        bad = [m for m in loaded if _forbidden(m)]
+        assert not bad, bad
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     """With no CUDA, an entry point that was not asked for the CPU raises
     instead of running there."""

@@ -174,8 +174,8 @@ def test_davis_loader_equals_jax(davis_root, batch, frames, image_hw):
     from cvpr2020_manet_tpu.engine.propagate_batch import _load_batches
     from cvpr2020_manet_tpu_torch.data.davis import DavisEvalDataset
 
-    got = list(tpb._load_davis_batches(DavisEvalDataset(davis_root), batch,
-                                       frames, image_hw, 4))
+    got = list(tpb._load_adapter_batches(DavisEvalDataset(davis_root),
+                                         batch, frames, image_hw, 4))
     want = list(_load_batches(JaxDavis(davis_root), batch, frames, image_hw,
                               4))
     assert len(got) == len(want) > 0
