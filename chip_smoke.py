@@ -74,6 +74,23 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              rgb and yuv420 ingest, through the batch CLI's timing loops
              (`timed_batches`): B (T - 1) = 60 launches of the global
              kernel and of the local one per batch;
+   export  — the host time each `manet::*` custom op adds to a call of
+             its launcher; serving artifacts on torch.export
+             (`utils/export.py`): the export CLI on the card at its
+             defaults (480x854, uint8 frames, an 8-object bucket, the
+             main path's seeded weights) writes the default and the int8
+             bundle and the fused round, each with --check (export and
+             save seconds, MB); each bundle
+             is served from a fresh process that imports only
+             `utils.export` of the port: 16 frames (extract x16, interact
+             and aggregate_first on frame 0, propagate on frames 1-15,
+             aggregate_update once), the counters reset before it must
+             show 15 launches of kernel 1 (int8: kernel 3, no kernel 1)
+             and 15 of kernel 2, no `models` module loaded; its outputs
+             equal the same loop on the live module (per-entry p50 ms of
+             both); the fused round launches 1 + 1 and equals the live
+             round; a tiny bundle exported on the CPU, moved to the card
+             (`move_to_device_pass`), launches kernels 1 and 2;
 5. train   — the flagship model through `Trainer.train_step` (stage 1,
              TrainConfig() defaults: crop 416, batch 8) for 4 steps and
              `Stage2Trainer.train_step` (crop 416, batch 2, 3 simulated
@@ -95,8 +112,8 @@ imports nothing of JAX. Phases (any failure exits non-zero):
 6. result  — one JSON line of the kernels (launches: kernels 1-2 over the
              main path's 3 rounds, kernel 3 over serve_int8's 3 rounds,
              kernels 4-5 per stage-1 step, kernel 6 over the cp phase's
-             4-member ring; the stream, cp and batch phases log their
-             own), the nvidia-smi line, and the final
+             4-member ring; the stream, cp, batch and export phases log
+             their own), the nvidia-smi line, and the final
              `{"ok": true, "device": ...}` line.
 """
 
@@ -1671,6 +1688,342 @@ def batch_phase(dev, model, ingest: str, batch=4, n_frames=16,
         f"{len(timed)} serial and {len(timed)} pipelined batches")
 
 
+# --------------------------------------------------------------------- #
+# The export phase: serving artifacts on torch.export (utils/export.py),
+# written by the export CLI on the card and served from a fresh process
+# that loads no model code.
+# --------------------------------------------------------------------- #
+
+EXPORT_FRAMES = 16
+EXPORT_SIZE = (480, 854)        # the CLI's defaults; padded to 480 x 864
+# A loaded bundle runs the graph traced from the live functions: the same
+# ATen operations and the same kernels on the same inputs, so its outputs
+# are held to the export CLI's --check tolerance.
+TOL_EXPORT = 1e-5
+
+
+def export_loop_inputs(o: int, image_size, seed: int = 0):
+    """The serving loop's inputs, made from a seed: EXPORT_FRAMES uint8
+    frames of `image_size` (noise with two squares that move a pixel or
+    two a frame) and positive scribbles for 2 objects on frame 0 at the
+    padded feature grid. -> (frames (T, H, W, 3) uint8, pos (h, w, O)
+    f32)."""
+    rng = np.random.default_rng(seed)
+    h, w = image_size
+    frames = rng.integers(0, 256, (EXPORT_FRAMES, h, w, 3), dtype=np.uint8)
+    for t in range(EXPORT_FRAMES):
+        frames[t, 100 + t:220 + t, 200 + 2 * t:360 + 2 * t] = (230, 40, 40)
+        frames[t, 260:380, 500 - t:640 - t] = (40, 40, 230)
+    hh, ww = (h + (-h) % 16) // 4, (w + (-w) % 16) // 4
+    pos = np.zeros((hh, ww, o), np.float32)
+    pos[35:45, 60:80, 1] = 1.0
+    pos[75:85, 130:150, 2] = 1.0
+    return frames, pos
+
+
+def bundle_loop(call, frames, pos, device):
+    """The serving loop a host drives from a bundle: `extract` on every
+    frame, `interact` and `aggregate_first` on frame 0, `propagate` on
+    frames 1..T-1 against frame 0's pixels labelled by its interaction
+    probabilities (one round: gmap_prev ones; the previous frame's
+    embedding and probabilities for local matching), `aggregate_update`
+    once. `call`: entry name -> callable. -> (probabilities (T, h, w, O),
+    the updated memory, {entry: [host ms of each call, synchronized]})."""
+    import torch.nn.functional as F
+    times: dict[str, list[float]] = {}
+
+    def timed(name, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = call[name](*args)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    frames = torch.from_numpy(frames).to(device)
+    pos = torch.from_numpy(pos).to(device)
+    hh, ww, o = pos.shape
+    obj_valid = (torch.arange(o, device=device) <= 2).float()
+    feats = [timed("extract", f) for f in frames]
+    feat0, emb0 = feats[0]
+    bg = F.one_hot(torch.zeros(hh, ww, dtype=torch.long, device=device),
+                   o).float()
+    int_feats, probs = timed("interact", feat0, pos, torch.zeros_like(pos),
+                             bg)
+    mem = timed("aggregate_first", int_feats)
+    ref_emb = emb0.reshape(-1, emb0.shape[-1])
+    onehot = F.one_hot(probs.argmax(-1).reshape(-1), o).float()
+    ones = torch.ones(hh, ww, o, device=device)
+    out = [probs]
+    for t in range(1, len(feats)):
+        feat, emb = feats[t]
+        probs_t, _ = timed("propagate", feat, emb, ref_emb, onehot, ones,
+                           feats[t - 1][1], out[-1], mem, obj_valid)
+        out.append(probs_t)
+    mem = timed("aggregate_update", int_feats, mem)
+    return torch.stack(out), mem, times
+
+
+def export_child(path: str, out_path: str) -> None:
+    """Run in a fresh process (`python -c`): load the bundle at `path`
+    with only `utils.export` of the port imported, drive `bundle_loop`
+    twice (the first warms up), the launch counters reset before the
+    second, save its outputs to `out_path` and print one JSON line: the
+    load seconds, per-entry p50 ms, the launches, the outputs' checksums
+    and whether the model code was loaded."""
+    from cvpr2020_manet_tpu_torch.kernels import build
+    from cvpr2020_manet_tpu_torch.utils import export
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    bundle = export.load_bundle(path)
+    load_s = time.perf_counter() - t
+    frames, pos = export_loop_inputs(bundle.manifest["num_objects"] + 1,
+                                     bundle.manifest["image_size"])
+    dev = bundle["extract"].device
+    bundle_loop(bundle, frames, pos, dev)
+    build.reset_launches()
+    probs, mem, times = bundle_loop(bundle, frames, pos, dev)
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    torch.save({"probs": probs.cpu(), "mem": mem.cpu()}, out_path)
+    # each graph's operations, and of them the metadata asserts that
+    # torch.export puts beside every dtype cast: the host runs each one
+    nodes = {}
+    for name in bundle.names:
+        ops = [str(n.target) for n in bundle[name].exported.graph.nodes
+               if n.op == "call_function"]
+        nodes[name] = [len(ops),
+                       ops.count("aten._assert_tensor_metadata.default")]
+    print(json.dumps({
+        "load_s": load_s, "launches": launches, "nodes": nodes,
+        "p50_ms": {k: statistics.median(v) for k, v in times.items()},
+        "calls": {k: len(v) for k, v in times.items()},
+        "checksums": {"probs_sq": float(probs.double().square().sum()),
+                      "labels": int(probs.argmax(-1).sum()),
+                      "mem": float(mem.double().sum())},
+        "models_loaded": sorted(m for m in sys.modules if m.startswith(
+            "cvpr2020_manet_tpu_torch.models")),
+        "port_modules": sorted(m for m in sys.modules
+                               if m.startswith("cvpr2020_manet_tpu_torch"))}))
+
+
+def export_cli_timed(argv) -> dict:
+    """`export_cli.main(argv)` with its export and save timed (the card
+    synchronized after each) and its stdout captured: -> the manifest, the
+    check's line, the export and save seconds and the CLI's wall."""
+    import contextlib
+    import io
+    from cvpr2020_manet_tpu_torch.utils import export as ex
+    from cvpr2020_manet_tpu_torch.utils import export_cli
+    spans: dict[str, float] = {}
+
+    def timed(kind, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            result = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spans[kind] = time.perf_counter() - t
+            return result
+        return run
+
+    names = {"export_serving_bundle": "export_s", "export_forward": "export_s",
+             "save_bundle": "save_s", "save_artifact": "save_s"}
+    originals = {n: getattr(ex, n) for n in names}
+    out = io.StringIO()
+    t = time.perf_counter()
+    try:
+        for n, kind in names.items():
+            setattr(ex, n, timed(kind, originals[n]))
+        with contextlib.redirect_stdout(out):
+            export_cli.main(argv)
+    finally:
+        for n, fn in originals.items():
+            setattr(ex, n, fn)
+    lines = out.getvalue().strip().splitlines()
+    return dict(manifest=json.loads(lines[0]), check=lines[-1],
+                wall_s=time.perf_counter() - t, **spans)
+
+
+def dispatch_cost(dev) -> None:
+    """The host time a call through each `manet::*` custom op adds to a
+    direct call of its launcher (the wrappers' path before the ops): both
+    on one tiny input whose kernel takes a few microseconds, so that
+    back-to-back calls run at the host's pace; the mean over 500 calls,
+    in turns (launcher, op, op, launcher)."""
+    import torch.nn.functional as F
+    from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
+        _launch, _launch_int8, prepare_ref, prepare_ref_int8)
+    from cvpr2020_manet_tpu_torch.ops.local_matching_cuda import (
+        _launch as local_launch, prepare_local)
+    g = torch.Generator().manual_seed(5)
+    k = torch.randn(512, 100, generator=g).to(dev, torch.bfloat16)
+    q = torch.randn(256, 100, generator=g).to(dev, torch.bfloat16)
+    onehot = F.one_hot(torch.arange(512) % 3, 4).float().to(dev)
+    b, b8 = prepare_ref(k, onehot), prepare_ref_int8(k, onehot)
+    local = prepare_local(*(torch.randn(8, 8, 100, generator=g).to(dev)
+                            for _ in range(2)),
+                          F.one_hot(torch.arange(64) % 4, 4).float()
+                          .reshape(8, 8, 4).to(dev))
+    pairs = {
+        "global_matching": (lambda: _launch(q, b, False),
+                            lambda: torch.ops.manet.global_matching(q, *b)),
+        "global_matching_int8": (
+            lambda: _launch_int8(q, b8),
+            lambda: torch.ops.manet.global_matching_int8(q, *b8)),
+        "local_matching": (
+            lambda: local_launch(*local, 2, False),
+            lambda: torch.ops.manet.local_matching(*local, 2))}
+
+    def host_us(fn, calls=500):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / calls * 1e6
+
+    for name, (launch, op) in pairs.items():
+        l1, o1, o2, l2 = (host_us(f) for f in (launch, op, op, launch))
+        log(f"[export] {name} custom op: {o1:.1f}, {o2:.1f} us a call, its "
+            f"launcher {l1:.1f}, {l2:.1f} us (tiny input, back-to-back "
+            f"calls at the host's pace): the op adds "
+            f"{(o1 + o2 - l1 - l2) / 2:.1f} us a call (16 matching calls a "
+            f"round, 120 a batch of 4 x 16 frames)")
+
+
+def export_phase(dev, model, model_i8) -> None:
+    """Serving artifacts at the flagship ModelConfig() (seed 0, the
+    weights of `model` and `model_i8`), 480x854, uint8 frames, an
+    8-object bucket: the default and the int8 bundle and the fused round,
+    each written by the export CLI on the card with --check; each bundle
+    served from a fresh process over EXPORT_FRAMES frames (15 propagates:
+    15 launches of the global kernel and 15 of kernel 2, no model code
+    loaded) and held against the same loop on the live module; then a
+    tiny bundle exported on the CPU, moved to the card."""
+    import tempfile
+    from cvpr2020_manet_tpu_torch.kernels import build
+    from cvpr2020_manet_tpu_torch.utils import export as ex
+    t_phase = time.perf_counter()
+    dispatch_cost(dev)
+    o = model.cfg.max_objects + 1
+    frames, pos = export_loop_inputs(o, EXPORT_SIZE)
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, live in (("auto", model), ("int8", model_i8)):
+            kernel = ("global_matching_int8" if backend == "int8"
+                      else "global_matching")
+            path = os.path.join(tmp, f"bundle_{backend}.ivosx")
+            run = export_cli_timed(["--out", path, "--bundle", "--check",
+                                    "--device", "cuda",
+                                    "--matching_backend", backend])
+            require(run["check"].endswith("direct apply"), run["check"])
+            mb = os.path.getsize(path) / 2**20
+            log(f"[export] bundle ({backend}): exported in "
+                f"{run['export_s']:.2f} s, saved in {run['save_s']:.2f} s, "
+                f"{mb:.1f} MB; CLI with --check {run['wall_s']:.2f} s "
+                f"('{run['check']}'); entries "
+                + json.dumps({n: [e["length"], e["in_avals"][0][0]]
+                              for n, e in run["manifest"]["entries"].items()}))
+            out_path = os.path.join(tmp, f"loop_{backend}.pt")
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", "import sys; from chip_smoke import "
+                 "export_child; export_child(*sys.argv[1:])", path, out_path],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=600)
+            require(proc.returncode == 0,
+                    f"bundle loop process ({backend}): {proc.stderr[-3000:]}")
+            child = json.loads(proc.stdout.strip().splitlines()[-1])
+            child_s = time.perf_counter() - t
+            want = {kernel: EXPORT_FRAMES - 1,
+                    "local_matching": EXPORT_FRAMES - 1}
+            require(child["launches"] == want,
+                    f"bundle loop ({backend}) launched {child['launches']}, "
+                    f"expected {want}")
+            require(not child["models_loaded"],
+                    f"the bundle process loaded {child['models_loaded']}")
+            got = torch.load(out_path)
+            fns = ex.build_serving_fns(live, EXPORT_SIZE, o - 1, pad_to=16)
+            fns = dict(fns, extract=ex.wrap_raw_image(*fns["extract"]))
+            with torch.no_grad():
+                bundle_loop({n: fn for n, (fn, _) in fns.items()}, frames,
+                            pos, dev)                        # warm-up
+                probs, mem, live_times = bundle_loop(
+                    {n: fn for n, (fn, _) in fns.items()}, frames, pos, dev)
+            err_p = (got["probs"] - probs.cpu()).abs().max().item()
+            err_m = (got["mem"].float() - mem.float().cpu()).abs().max().item()
+            require(max(err_p, err_m) <= TOL_EXPORT,
+                    f"bundle ({backend}) vs live: probs {err_p}, mem {err_m}")
+            require(bool(torch.isfinite(got["probs"]).all()), "finite probs")
+            live_p50 = {k: statistics.median(v) for k, v in live_times.items()}
+            log(f"[export] bundle ({backend}) in a fresh process "
+                f"({child_s:.1f} s, of it load {child['load_s']:.2f} s): "
+                f"{EXPORT_FRAMES} frames, launches {child['launches']} "
+                f"(one global launch per propagated frame; the Evaluator "
+                f"makes one per round), no model module loaded (port "
+                f"modules: {', '.join(child['port_modules'])}); p50 ms "
+                + ", ".join(f"{k} {v:.2f} (live {live_p50[k]:.2f}) x"
+                            f"{child['calls'][k]}"
+                            for k, v in child["p50_ms"].items())
+                + f"; graph operations (of them metadata asserts) "
+                f"{child['nodes']}"
+                + f"; checksums {child['checksums']}; against the live "
+                f"module max|dprob|={err_p:.3g}, max|dmem|={err_m:.3g} "
+                f"(tol {TOL_EXPORT})")
+
+        # the fused round artifact (uint8 frames), run once on the card
+        path = os.path.join(tmp, "round.ivosx")
+        run = export_cli_timed(["--out", path, "--check", "--device",
+                                "cuda"])
+        require(run["check"].endswith("direct apply"), run["check"])
+        t = time.perf_counter()
+        art = ex.load_artifact(path)
+        load_s = time.perf_counter() - t
+        fn, _ = ex.wrap_raw_image(*ex.build_round_forward(
+            model, EXPORT_SIZE, o - 1, pad_to=16))
+        img = torch.from_numpy(frames[0]).to(dev)
+        posd = torch.from_numpy(pos).to(dev)
+        got, n = launches_delta(lambda: art(img, posd, torch.zeros_like(posd)))
+        require(n == {"global_matching": 1, "local_matching": 1},
+                f"the fused round launched {n}")
+        with torch.no_grad():
+            err = (got - fn(img, posd, torch.zeros_like(posd))).abs().max()
+        require(err.item() <= TOL_EXPORT, f"fused round vs live: {err}")
+        log(f"[export] fused round: exported in {run['export_s']:.2f} s, "
+            f"saved in {run['save_s']:.2f} s, "
+            f"{os.path.getsize(path) / 2**20:.1f} MB, loaded in "
+            f"{load_s:.2f} s; one call launched {n}; max|dprob| against "
+            f"the live module {err.item():.3g} (tol {TOL_EXPORT})")
+
+        # a tiny bundle exported on the CPU (a build host without a card),
+        # moved to the card by move_to_device_pass
+        path = os.path.join(tmp, "tiny_cpu.ivosx")
+        export_cli_timed(["--out", path, "--tiny", "--bundle", "--device",
+                          "cpu"])
+        on_cpu = ex.load_bundle(path)
+        on_card = ex.load_bundle(path, device=dev)
+        g = torch.Generator().manual_seed(4)
+        args = [torch.randn(shape, generator=g).to(getattr(torch, dt))
+                for shape, dt in on_cpu["propagate"].manifest["in_avals"]]
+        o_tiny = args[3].shape[-1]
+        args[3] = torch.nn.functional.one_hot(args[3].argmax(-1),
+                                              o_tiny).float()
+        want = on_cpu["propagate"](*args)
+        got, n = launches_delta(
+            lambda: on_card["propagate"](*[a.to(dev) for a in args]))
+        torch.cuda.synchronize()
+        require(n == {"global_matching": 1, "local_matching": 1},
+                f"the moved bundle launched {n}")
+        err = max((a.cpu() - b).abs().max().item() for a, b in zip(got, want))
+        # the tiny round's card-vs-CPU tolerance
+        require(err <= TOL_ROUND_PROBS, f"moved bundle vs CPU: {err}")
+        log(f"[export] tiny bundle exported on the CPU, moved to {dev}: "
+            f"propagate launched {n}; max|d| against the CPU {err:.3g} "
+            f"(tol {TOL_ROUND_PROBS}: cuDNN and the kernels sum in other "
+            f"orders)")
+    log(f"[export] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def run_trainer(name: str, trainer, cfg, steps: int,
                 per_step: dict[str, int]) -> dict[str, int]:
     """`steps` optimizer steps on synthetic batches (made beforehand); the
@@ -2124,6 +2477,8 @@ def main() -> int:
     for m in (model_i8, model):
         for ingest in ("rgb", "yuv420"):
             batch_phase(dev, m, ingest)
+    torch.cuda.empty_cache()
+    export_phase(dev, model, model_i8)
     del model, model_i8
     torch.cuda.empty_cache()
 

@@ -310,7 +310,7 @@ def add_train_override_args(p: argparse.ArgumentParser) -> None:
                         "(ingest_batch): 4x fewer upload bytes")
     p.add_argument("--distributed", action="store_true",
                    help="multi-process training: not ported yet (ROADMAP "
-                        "queue 1 item 7); raises")
+                        "queue 1, distributed training); raises")
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
@@ -338,7 +338,7 @@ def base_config(args) -> Config:
         raise NotImplementedError(
             "multi-process training (--distributed, --coordinator, "
             "--num_processes, --process_id) is not ported yet: ROADMAP.md "
-            "queue 1 item 7")
+            "queue 1, distributed training")
     return apply_train_overrides(
         tiny_test_config() if args.tiny else Config(), args)
 

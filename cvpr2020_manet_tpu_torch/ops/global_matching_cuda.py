@@ -14,6 +14,12 @@ one add per (query, key) pair and one min per tile:
 (`csrc/global_matching.cu`, which replaces the TPU kernel
 `matching_pallas.py::_matching_kernel`) for a CUDA query, and runs the
 plain version below for a CPU query. There is no fallback between them.
+It goes through the custom op `torch.ops.manet.global_matching` (and the
+int8 wrapper through `manet::global_matching_int8`), whose schema takes
+the bucketed reference's fields: the op's CUDA registration launches the
+kernel, its CPU registration runs the plain version, and its fake
+implementation gives the output's shape and dtype, so that
+`torch.export` records the matching as one node (`utils/export.py`).
 
 `global_matching_prepared_argmin` does the same with the kernel's argmin
 variant (which replaces `matching_pallas.py::_matching_kernel_argmin`):
@@ -369,14 +375,50 @@ def _launch(query: torch.Tensor, bucketed: BucketedRef, argmin: bool):
     return out, idx
 
 
+# Kernels 1 and 3 as custom ops of the `manet` namespace, on the fields of
+# the bucketed reference: the CUDA registration launches the kernel, the
+# CPU registration runs the plain version, and the fake implementation
+# gives torch.export the output's shape and dtype. They are registered
+# through torch.library.Library, not torch.library.custom_op, whose
+# kernels import torch._dynamo at their first call (seconds, once per
+# process) and run an autograd layer in Python at every call.
+_LIB = torch.library.Library("manet", "FRAGMENT")
+_LIB.define("global_matching(Tensor query, Tensor neg2pixels, Tensor sqnorm, "
+            "Tensor block_obj, Tensor src_idx, int num_objects) -> Tensor")
+_LIB.define("global_matching_int8(Tensor query, Tensor pixels, "
+            "Tensor sqnorm, Tensor block_obj, Tensor src_idx, Tensor scale, "
+            "int num_objects) -> Tensor")
+
+
+def _global_matching_cpu(query, neg2pixels, sqnorm, block_obj, src_idx,
+                         num_objects):
+    return global_matching_prepared_plain(query, BucketedRef(
+        neg2pixels, sqnorm, block_obj, src_idx, num_objects))
+
+
+def _global_matching_cuda(query, neg2pixels, sqnorm, block_obj, src_idx,
+                          num_objects):
+    return _launch(query, BucketedRef(neg2pixels, sqnorm, block_obj, src_idx,
+                                      num_objects), argmin=False)[0]
+
+
+@torch.library.register_fake("manet::global_matching", lib=_LIB)
+def _global_matching_fake(query, neg2pixels, sqnorm, block_obj, src_idx,
+                          num_objects):
+    return query.new_empty((query.shape[0], num_objects),
+                           dtype=acc_dtype(query))
+
+
+_LIB.impl("global_matching", _global_matching_cpu, "CPU")
+_LIB.impl("global_matching", _global_matching_cuda, "CUDA")
+
+
 def global_matching_prepared(query: torch.Tensor,
                              bucketed: BucketedRef) -> torch.Tensor:
     """Matching of query rows (Nq, C) against a prepared reference ->
     (Nq, O) f32. Launches the CUDA kernel for a CUDA query; runs the plain
-    version for a CPU query."""
-    if query.device.type == "cpu":
-        return global_matching_prepared_plain(query, bucketed)
-    return _launch(query, bucketed, argmin=False)[0]
+    version for a CPU query (`torch.ops.manet.global_matching`)."""
+    return torch.ops.manet.global_matching(query, *bucketed)
 
 
 def global_matching_prepared_argmin(query: torch.Tensor,
@@ -510,17 +552,38 @@ def _launch_int8(query: torch.Tensor, bucketed: BucketedRefInt8,
     return out
 
 
+def _global_matching_int8_cpu(query, pixels, sqnorm, block_obj, src_idx,
+                              scale, num_objects):
+    return global_matching_prepared_int8_plain(query, BucketedRefInt8(
+        pixels, sqnorm, block_obj, src_idx, scale, num_objects))
+
+
+def _global_matching_int8_cuda(query, pixels, sqnorm, block_obj, src_idx,
+                               scale, num_objects):
+    if not query.dtype.is_floating_point:
+        raise TypeError(f"query dtype {query.dtype}: a float type only")
+    return _launch_int8(query, BucketedRefInt8(
+        pixels, sqnorm, block_obj, src_idx, scale, num_objects))
+
+
+@torch.library.register_fake("manet::global_matching_int8", lib=_LIB)
+def _global_matching_int8_fake(query, pixels, sqnorm, block_obj, src_idx,
+                               scale, num_objects):
+    return query.new_empty((query.shape[0], num_objects), dtype=torch.float32)
+
+
+_LIB.impl("global_matching_int8", _global_matching_int8_cpu, "CPU")
+_LIB.impl("global_matching_int8", _global_matching_int8_cuda, "CUDA")
+
+
 def global_matching_prepared_int8(query: torch.Tensor,
                                   bucketed: BucketedRefInt8) -> torch.Tensor:
     """Matching of float query rows (Nq, C) against an int8 reference ->
     (Nq, O) f32. Launches the int8 tensor-core kernel for a CUDA query (it
     quantizes the query per row itself, as `quantize_rows_int8` does);
-    runs the plain version for a CPU query."""
-    if query.device.type == "cpu":
-        return global_matching_prepared_int8_plain(query, bucketed)
-    if not query.dtype.is_floating_point:
-        raise TypeError(f"query dtype {query.dtype}: a float type only")
-    return _launch_int8(query, bucketed)
+    runs the plain version for a CPU query
+    (`torch.ops.manet.global_matching_int8`)."""
+    return torch.ops.manet.global_matching_int8(query, *bucketed)
 
 
 def global_matching_int8_cuda(query: torch.Tensor, ref: torch.Tensor,

@@ -12,7 +12,10 @@ kernel `local_matching_pallas.py::_kernel`) then returns
     normalize(clamp(|q|^2 + min over the window of (kno - 2 q.k), 0, 1e8))
 
 `local_matching_prepared` launches it for CUDA tensors and runs the plain
-version below for CPU tensors. There is no fallback between them. The
+version below for CPU tensors. There is no fallback between them. It goes
+through the custom op `torch.ops.manet.local_matching` (CUDA registration
+the kernel, CPU registration the plain version, a fake implementation
+for `torch.export`). The
 kernel tiles the frame into patches of query rows and forms the cross
 terms on the TF32 tensor cores in 3xTF32 (f32 accuracy); it takes windows
 up to `LOCAL_WINDOW_MAX`.
@@ -189,13 +192,33 @@ def _launch(q: torch.Tensor, k: torch.Tensor, kno: torch.Tensor, window: int,
     return out, idx
 
 
+# Kernel 2 as a custom op of the `manet` namespace, registered as kernels
+# 1 and 3 are (ops/global_matching_cuda.py): CUDA the kernel, CPU the
+# plain version, a fake implementation for torch.export.
+_LIB = torch.library.Library("manet", "FRAGMENT")
+_LIB.define("local_matching(Tensor q, Tensor k, Tensor kno, int window) "
+            "-> Tensor")
+
+
+def _local_matching_cuda(q, k, kno, window):
+    return _launch(q, k, kno, window, argmin=False)[0]
+
+
+@torch.library.register_fake("manet::local_matching", lib=_LIB)
+def _local_matching_fake(q, k, kno, window):
+    return q.new_empty((*q.shape[:2], kno.shape[-1]), dtype=acc_dtype(q))
+
+
+_LIB.impl("local_matching", local_matching_prepared_plain, "CPU")
+_LIB.impl("local_matching", _local_matching_cuda, "CUDA")
+
+
 def local_matching_prepared(q: torch.Tensor, k: torch.Tensor,
                             kno: torch.Tensor, window: int) -> torch.Tensor:
     """Kernel on prepared inputs -> (H, W, O) f32. Launches the CUDA kernel
-    for CUDA tensors; runs the plain version for CPU tensors."""
-    if q.device.type == "cpu":
-        return local_matching_prepared_plain(q, k, kno, window)
-    return _launch(q, k, kno, window, argmin=False)[0]
+    for CUDA tensors; runs the plain version for CPU tensors
+    (`torch.ops.manet.local_matching`)."""
+    return torch.ops.manet.local_matching(q, k, kno, window)
 
 
 def local_matching_prepared_argmin(q: torch.Tensor, k: torch.Tensor,

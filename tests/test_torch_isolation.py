@@ -220,6 +220,56 @@ def test_training_data_in_fresh_process_loads_no_jax(davis_root, tmp_path):
         assert not bad, bad
 
 
+def test_bundle_in_fresh_process_loads_no_models(tmp_path):
+    """The export CLI writes a tiny serving bundle on the CPU; a fresh
+    process that imports only `utils.export` loads it and drives one
+    2-frame round from it. Neither JAX nor the port's model code
+    (`models/`) is loaded there: the bundle alone carries the graphs, and
+    the matching kernels come in as the `manet::*` custom ops."""
+    from cvpr2020_manet_tpu_torch.utils import export_cli
+    path = str(tmp_path / "b.ivosx")
+    export_cli.main(["--out", path, "--tiny", "--bundle", "--device", "cpu",
+                     "--matching_backend", "int8"])
+    code = textwrap.dedent(f"""
+        import sys
+        import torch
+        import torch.nn.functional as F
+        from cvpr2020_manet_tpu_torch.utils import export
+        b = export.load_bundle({path!r})
+        h, w, _ = b["extract"].manifest["in_avals"][0][0]
+        o = b.manifest["num_objects"] + 1
+        g = torch.Generator().manual_seed(0)
+        frames = torch.randint(0, 256, (2, h, w, 3), generator=g,
+                               dtype=torch.uint8)
+        feat0, emb0 = b["extract"](frames[0])
+        pos = torch.zeros(h // 4, w // 4, o)
+        pos[1:3, 1:3, 1] = 1.0
+        bg = F.one_hot(torch.zeros(h // 4, w // 4, dtype=torch.long),
+                       o).float()
+        int_feats, probs0 = b["interact"](feat0, pos, torch.zeros_like(pos),
+                                          bg)
+        mem = b["aggregate_first"](int_feats)
+        feat1, emb1 = b["extract"](frames[1])
+        onehot = F.one_hot(probs0.argmax(-1).reshape(-1), o).float()
+        probs1, _ = b["propagate"](feat1, emb1, emb0.reshape(-1, emb0.shape[-1]),
+                                   onehot, torch.ones(h // 4, w // 4, o), emb0,
+                                   probs0, mem, torch.ones(o))
+        b["aggregate_update"](int_feats, mem)
+        assert torch.allclose(probs1.sum(-1), torch.ones(()), atol=1e-5)
+        print(" ".join(sorted(sys.modules)))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG_DIR.parent,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    assert "cvpr2020_manet_tpu_torch.utils.export" in loaded
+    assert "cvpr2020_manet_tpu_torch.ops.global_matching_cuda" in loaded
+    bad = [m for m in loaded if _forbidden(m)
+           or m.startswith("cvpr2020_manet_tpu_torch.models")]
+    assert not bad, bad
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     """With no CUDA, an entry point that was not asked for the CPU raises
     instead of running there."""
