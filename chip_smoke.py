@@ -109,6 +109,22 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              launches per stage-1 step and 2 B R F each per stage-2 step
              (the backward recomputes the checkpointed tails and rounds),
              and the serving kernels at none;
+   dist    — the flagship Config() at batch 8: 2 ranks on the one card,
+             two processes (tests/_torch_dist_worker.py) over Gloo on CUDA
+             tensors, 3 stage-1 and 2 stage-2 steps at 4 samples a rank:
+             equal losses and parameter hashes across the ranks after
+             every step, per rank and stage-1 step 4 kernel-4 and 8
+             kernel-5 launches, the step wall, the all-reduce's share of
+             it and the peak memory; the stage-1 CLI with --distributed
+             --num_processes 1 on NCCL with --snapshot_dir, then resumed
+             (the 2-rank NCCL CLI only where there are two cards); the cp
+             train step on 4 members of the card against the one-device
+             step for 3 steps (every map to TOL_GLOBAL, losses to 1e-4
+             relative, 32 kernel-4 and 16 kernel-5 launches a step);
+             norm='frozen' from a synthetic torchvision resnet101 .pth
+             (load_torch_file, convert_torch_resnet, load_backbone_into; 2
+             steps and a 480p round), 'ln' (a step and a round), 'bn'
+             (extract_features at 480p; the Evaluator refuses it);
 6. result  — one JSON line of the kernels (launches: kernels 1-2 over the
              main path's 3 rounds, kernel 3 over serve_int8's 3 rounds,
              kernels 4-5 per stage-1 step, kernel 6 over the cp phase's
@@ -2049,9 +2065,10 @@ def run_trainer(name: str, trainer, cfg, steps: int,
             + " ".join(f"{k}={v:.6f}" for k, v in metrics.items())
             + f", {times[-1] * 1e3:.1f} ms")
     launches = dict(build.LAUNCHES)
-    step_s = statistics.median(times[1:])
+    step_s = statistics.median(times[1:] or times)
     log(f"[train] {name}: batch {b}, crop {cfg.train.crop_size}; median "
-        f"step after the first {step_s * 1e3:.1f} ms, {b / step_s:.2f} "
+        f"step {'after the first ' if steps > 1 else ''}"
+        f"{step_s * 1e3:.1f} ms, {b / step_s:.2f} "
         f"samples/s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{launches} over {steps} steps")
@@ -2289,6 +2306,365 @@ def train_data_phase(dev) -> None:
     log(f"[train] the data runs took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------- #
+# The dist phase: data-parallel ranks, the context-parallel train step and
+# the norms other than GroupNorm, at the flagship Config().
+# --------------------------------------------------------------------- #
+
+DIST_BATCH = 8                  # global batch of the data-parallel runs
+CP_MEMBERS = 4                  # context members of the cp step, one card
+TOL_CP_LOSS = 1e-4              # cp step against the one-device step, rel
+
+
+def _tests_on_path():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+
+
+def _stage_records(records, stage):
+    return [r for r in records if r.get("stage") == stage and r["step"] >= 0]
+
+
+def dist_two_ranks(cfg) -> None:
+    """2 ranks on the one card, two processes (tests/_torch_dist_worker.py,
+    which imports only the port) over Gloo on CUDA tensors: global batch
+    8, 3 stage-1 and 2 stage-2 steps, each rank on its half. Equal losses
+    and parameter hashes across ranks after every step (and at the start);
+    per rank and stage-1 step B_local kernel-4 and 2 B_local kernel-5
+    launches (stage 2: 2 B_local R F each)."""
+    import tempfile
+    _tests_on_path()
+    from _torch_dist_worker import run_ranks
+    bl = DIST_BATCH // 2
+    rounds, frames = cfg.train.stage2_rounds, 3
+    per_step = {1: {"global_matching_argmin": bl,
+                    "local_matching_argmin": 2 * bl},
+                2: {"global_matching_argmin": 2 * bl * rounds * frames,
+                    "local_matching_argmin": 2 * bl * rounds * frames}}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = run_ranks([dict(rank=r, world=2, device="cuda",
+                               backend="gloo", mode="train", tiny=False,
+                               batch=DIST_BATCH, steps1=3, steps2=2,
+                               out=tmp) for r in range(2)], timeout=900)
+    wall = time.perf_counter() - t0
+    ranks = [[json.loads(line) for line in o.splitlines()
+              if line.startswith("{")] for o in outs]
+    require(ranks[0][0]["hash"] == ranks[1][0]["hash"],
+            "dist: the ranks start from different weights")
+    for stage, steps in ((1, 3), (2, 2)):
+        a, b = (_stage_records(r, stage) for r in ranks)
+        require(len(a) == len(b) == steps, f"dist: stage {stage} steps")
+        for x, y in zip(a, b):
+            require(x["loss"] == y["loss"] and np.isfinite(x["loss"]),
+                    f"dist: stage {stage} step {x['step']} losses "
+                    f"{x['loss']} / {y['loss']}")
+            require(x["hash"] == y["hash"],
+                    f"dist: stage {stage} step {x['step']}: the ranks' "
+                    f"parameters differ")
+            for r in (x, y):
+                require(r["launches"] == per_step[stage],
+                        f"dist: stage {stage} launches {r['launches']}, "
+                        f"expected {per_step[stage]}")
+        for rank, recs in enumerate((a, b)):
+            steps_ms = [r["step_s"] * 1e3 for r in recs]
+            reduce_ms = [r["allreduce_s"] * 1e3 for r in recs]
+            share = [r["allreduce_s"] / r["step_s"] for r in recs]
+            losses = [r["loss"] for r in recs]
+            log(f"[dist] 2 ranks, gloo on one card, stage {stage}, rank "
+                f"{rank}: batch {bl} a rank; losses "
+                f"{', '.join(f'{v:.6f}' for v in losses)}; "
+                f"steps {', '.join(f'{t:.1f}' for t in steps_ms)} ms; "
+                f"gradient all-reduce "
+                f"{', '.join(f'{t:.1f}' for t in reduce_ms)} ms "
+                f"(share {', '.join(f'{v:.3f}' for v in share)}); peak "
+                f"device memory {max(r['peak_gib'] for r in recs):.2f} GiB; "
+                f"launches a step {recs[-1]['launches']}")
+    log(f"[dist] 2 ranks: equal losses and parameter hashes after every "
+        f"step of both stages; the two processes took {wall:.1f} s")
+
+
+def dist_cli_nccl(cfg) -> None:
+    """The stage-1 CLI with --distributed --num_processes 1 on NCCL in this
+    process (a one-rank group: no coordinator), with --snapshot_dir, for 3
+    steps, then resumed for 3 more; with two cards or more, the 2-rank CLI
+    on NCCL in two processes."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from cvpr2020_manet_tpu_torch.engine import train_stage1
+    from cvpr2020_manet_tpu_torch.parallel import distributed
+    b = cfg.train.batch_size
+    per_step = {"global_matching_argmin": b, "local_matching_argmin": 2 * b}
+    joined = []
+    real = distributed.initialize
+
+    def recorded(*args, **kw):
+        out = real(*args, **kw)
+        joined.append((out, dist.get_backend()))
+        return out
+
+    distributed.initialize = recorded
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--synthetic", "--steps", "3", "--distributed",
+                    "--num_processes", "1", "--snapshot_dir", tmp]
+            runs = [trainer_cli(train_stage1, train_stage1.Trainer, argv,
+                                per_step) for _ in range(2)]
+            snaps = sorted(int(d) for d in os.listdir(tmp))
+    finally:
+        distributed.initialize = real
+    require(joined == [((0, 1), "nccl")] * 2,
+            f"dist: the CLI joined {joined}, expected one NCCL rank twice")
+    require(not dist.is_initialized(), "dist: the CLI left its group open")
+    require("resumed from step 3" in runs[1]["stdout"] and snaps == [3, 6],
+            f"dist: resume {runs[1]['stdout'][:200]!r}, snapshots {snaps}")
+    for name, run in zip(("first", "resumed"), runs):
+        log(f"[dist] stage 1 CLI --distributed --num_processes 1 (nccl), "
+            f"{name} run: losses "
+            f"{', '.join(f'{v:.6f}' for v in run['losses'])}; steps "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in run['step_s'])} ms; the "
+            f"CLI {run['wall_s']:.1f} s; launches {run['launches']}")
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[dist] the 2-rank CLI on NCCL skipped: {n} card on this "
+            f"machine, and NCCL refuses two ranks on one card")
+        return
+    from cvpr2020_manet_tpu_torch.parallel.distributed import free_port
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cvpr2020_manet_tpu_torch.engine.train_stage1",
+         "--synthetic", "--steps", "2", "--distributed", "--coordinator",
+         f"127.0.0.1:{port}", "--num_processes", "2", "--process_id",
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        require(p.returncode == 0, f"dist: 2-rank NCCL CLI: {out[-2000:]}")
+    log(f"[dist] 2-rank stage 1 CLI on NCCL over cuda:0 and cuda:1: "
+        f"{time.perf_counter() - t0:.1f} s; rank 0: "
+        f"{outs[0].strip().splitlines()[-1]}")
+
+
+def dist_cp_step(dev, cfg) -> None:
+    """`make_cp_train_step` on 4 context members of the one card against
+    the one-device step, 3 steps at batch 8, each on the same weights and
+    batch (the one-device trainer takes the cp trainer's weights before
+    every step, so the float drift of two independent runs, whose
+    gradient sums differ in order, stays out of the comparison): every
+    sample's cp map against the one-device kernel-4 map of the same
+    embeddings (TOL_GLOBAL; 0 expected, the per-pair arithmetic does not
+    depend on the tile and the min is exact), the losses to TOL_CP_LOSS
+    relative, and B x 4 kernel-4 and 2B kernel-5 launches a step."""
+    from cvpr2020_manet_tpu_torch.engine import train_stage1
+    from cvpr2020_manet_tpu_torch.engine.train_stage1 import (
+        Trainer, make_cp_train_step, synthetic_batch)
+    from cvpr2020_manet_tpu_torch.kernels import build
+    from cvpr2020_manet_tpu_torch.ops.trainable import GlobalMatchingTrainable
+    from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
+    b = cfg.train.batch_size
+    one = Trainer(cfg, device=dev)
+    cp = Trainer(cfg, device=dev)
+    mesh = create_mesh(data=1, context=CP_MEMBERS,
+                       devices=[torch.device("cuda", 0)] * CP_MEMBERS)
+    step = make_cp_train_step(cp.model, cfg, mesh)
+    inputs, maps = [], []
+    real = train_stage1.trainable_local_then_min
+
+    def recorded(query, ref, gate, devices):
+        inputs.append((query.detach(), ref.detach(), gate))
+        gm = real(query, ref, gate, devices)
+        maps.append(gm.detach())
+        return gm
+
+    want = {"global_matching_argmin": b * CP_MEMBERS,
+            "local_matching_argmin": 2 * b}
+    rng = np.random.default_rng(cfg.train.seed + 7)
+    train_stage1.trainable_local_then_min = recorded
+    try:
+        for i in range(3):
+            batch = synthetic_batch(cfg, rng)
+            one.model.load_state_dict(cp.model.state_dict())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss_one = one.train_step(batch)["loss"]
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t
+            inputs.clear()
+            maps.clear()
+            build.reset_launches()
+            t = time.perf_counter()
+            loss_cp = step(cp.state, batch)["loss"]
+            torch.cuda.synchronize()
+            cp_s = time.perf_counter() - t
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+            with torch.no_grad():
+                single = [GlobalMatchingTrainable.apply(*x) for x in inputs]
+            err = max(float((g - s).abs().max())
+                      for g, s in zip(maps, single, strict=True))
+            rel = abs(loss_cp - loss_one) / abs(loss_one)
+            log(f"[dist] cp step {i} ({CP_MEMBERS} members of {dev}, batch "
+                f"{b}): loss {loss_cp:.6f} against the one-device step's "
+                f"{loss_one:.6f} (rel {rel:.3g}); max|cp map - one-device "
+                f"map| {err:.3g} over {len(single)} samples (tol "
+                f"{TOL_GLOBAL}); step {cp_s * 1e3:.1f} ms against "
+                f"{one_s * 1e3:.1f} ms; launches {launches}")
+            require(err <= TOL_GLOBAL, f"cp step map error {err}")
+            require(np.isfinite(loss_cp) and rel <= TOL_CP_LOSS,
+                    f"cp step loss {loss_cp} vs {loss_one}")
+            require(launches == want, f"cp step launches {launches}, "
+                    f"expected {want}")
+    finally:
+        train_stage1.trainable_local_then_min = real
+
+
+def write_resnet101_pth(path: str, seed: int = 0) -> None:
+    """A synthetic torchvision-layout `resnet101` state dict as a .pth:
+    He-scaled convs, BatchNorm near the identity (each block's last BN at
+    gamma 0.2, so the residual sums stay at scale over 33 blocks)."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cin, cout, k):
+        sd[f"{name}.weight"] = torch.randn(
+            (cout, cin, k, k), generator=g) * (2.0 / (cin * k * k)) ** 0.5
+
+    def bn(name, c, gamma=1.0):
+        u = lambda: torch.rand(c, generator=g)          # noqa: E731
+        sd[f"{name}.weight"] = gamma * (0.9 + 0.2 * u())
+        sd[f"{name}.bias"] = 0.01 * torch.randn(c, generator=g)
+        sd[f"{name}.running_mean"] = 0.01 * torch.randn(c, generator=g)
+        sd[f"{name}.running_var"] = 0.9 + 0.2 * u()
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 3, 64, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, n in enumerate((3, 4, 23, 3)):
+        ch = 64 * 2 ** s
+        for blk in range(n):
+            t = f"layer{s + 1}.{blk}"
+            conv(f"{t}.conv1", cin, ch, 1)
+            bn(f"{t}.bn1", ch)
+            conv(f"{t}.conv2", ch, ch, 3)
+            bn(f"{t}.bn2", ch)
+            conv(f"{t}.conv3", ch, ch * 4, 1)
+            bn(f"{t}.bn3", ch * 4, gamma=0.2)
+            if blk == 0:
+                conv(f"{t}.downsample.0", cin, ch * 4, 1)
+                bn(f"{t}.downsample.1", ch * 4)
+            cin = ch * 4
+    sd["fc.weight"] = 0.01 * torch.randn((1000, cin), generator=g)
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+
+
+def dist_norms(dev, cfg) -> None:
+    """The norms other than GroupNorm at ResNet-101 depths: 'frozen' from a
+    synthetic torchvision resnet101 .pth (load_torch_file ->
+    convert_torch_resnet -> load_backbone_into), 2 stage-1 steps and one
+    480p round through the Evaluator (1 kernel-1 and 15 kernel-2
+    launches); 'ln' one step and one round; 'bn' one extract_features at
+    480p, and the Evaluator refusing it."""
+    import dataclasses
+    import tempfile
+
+    from cvpr2020_manet_tpu_torch.config import Config
+    from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+    from cvpr2020_manet_tpu_torch.engine.train_stage1 import Trainer
+    from cvpr2020_manet_tpu_torch.models import MANet
+    from cvpr2020_manet_tpu_torch.utils.pretrained import (
+        convert_torch_resnet, load_backbone_into, load_torch_file)
+    b = cfg.train.batch_size
+    per_step = {"global_matching_argmin": b, "local_matching_argmin": 2 * b}
+
+    def with_norm(norm):
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, norm=norm))
+
+    for norm, steps in (("frozen", 2), ("ln", 1)):
+        ncfg = with_norm(norm)
+        trainer = Trainer(ncfg, device=dev)
+        if norm == "frozen":
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "resnet101.pth")
+                t0 = time.perf_counter()
+                write_resnet101_pth(path)
+                t1 = time.perf_counter()
+                sd = load_torch_file(path)
+                converted = convert_torch_resnet(sd)
+                load_backbone_into(trainer.model, converted)
+                t2 = time.perf_counter()
+                mb = os.path.getsize(path) / 2**20
+            stem = trainer.model.encoder.backbone.stem_norm.weight
+            require(torch.equal(stem.cpu(), converted["stem_norm.weight"]),
+                    "frozen: the pretrained stem did not load")
+            log(f"[dist] frozen: a synthetic torchvision resnet101 .pth "
+                f"({len(sd)} tensors, {mb:.1f} MB) written in {t1 - t0:.2f} "
+                f"s, loaded, converted ({len(converted)} backbone tensors, "
+                f"BN folded) and loaded into the model in {t2 - t1:.2f} s")
+        run_trainer(f"norm={norm!r} stage 1", trainer, ncfg, steps=steps,
+                    per_step=per_step)
+        serving = MANet(ncfg.model, device=dev)
+        serving.load_state_dict(trainer.model.state_dict())
+        del trainer
+        main_path(dev, serving, f"dist {norm}", "global_matching",
+                  uint8=False, rounds=1)
+        del serving
+        torch.cuda.empty_cache()
+
+    bn_cfg = dataclasses.replace(cfg.model, norm="bn", head_norm="bn")
+    model = MANet(bn_cfg, device=dev)
+    x = torch.randn((2, 480, 864, 3), generator=torch.Generator().manual_seed(
+        1)).to(dev)
+    mean0 = model.encoder.backbone.stem_norm.mean.clone()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.no_grad():
+        feat, emb = model.extract_features(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    require(bool(torch.isfinite(feat.float()).all()
+                 and torch.isfinite(emb.float()).all())
+            and feat.shape == (2, 120, 216, cfg.model.decoder_channels),
+            f"bn extract_features {tuple(feat.shape)}")
+    require(not torch.equal(mean0, model.encoder.backbone.stem_norm.mean),
+            "bn: the running statistics did not move")
+    try:
+        Evaluator(Config(model=bn_cfg), model, device=dev)
+        require(False, "the Evaluator accepted norm='bn'")
+    except ValueError as e:
+        require("batch_stats" in str(e), f"bn refusal: {e}")
+        log(f"[dist] bn: extract_features of 2 480x864 frames {ms:.1f} ms "
+            f"(first call), finite, running statistics updated; the "
+            f"Evaluator refuses it: {e}")
+
+
+def dist_phase(dev) -> None:
+    """Data-parallel ranks, the cp train step and the other norms, at the
+    flagship Config()."""
+    import dataclasses
+
+    from cvpr2020_manet_tpu_torch.config import Config
+    t_phase = time.perf_counter()
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=DIST_BATCH))
+    for name, part in (("2 ranks", lambda: dist_two_ranks(cfg)),
+                       ("NCCL CLI", lambda: dist_cli_nccl(cfg)),
+                       ("cp step", lambda: dist_cp_step(dev, cfg)),
+                       ("norms", lambda: dist_norms(dev, cfg))):
+        t = time.perf_counter()
+        part()
+        torch.cuda.empty_cache()
+        log(f"[dist] {name} took {time.perf_counter() - t:.1f} s")
+    log(f"[dist] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 # the port's kernel functions and the names of their template parameters
 TEMPLATE_PARAMS = {"global_matching_tf32": (),
                    "global_matching_wgmma": ("argmin", "int8"),
@@ -2482,8 +2858,10 @@ def main() -> int:
     del model, model_i8
     torch.cuda.empty_cache()
 
-    # [5] training: the flagship model; launches per stage-1 step
+    # [5] training: the flagship model; launches per stage-1 step; then
+    # data-parallel ranks, the cp step and the other norms
     launches.update(train_phase(dev))
+    dist_phase(dev)
     for k in kernels:
         if "launches" not in k:            # kernel 6 counts its own ring
             k["launches"] = launches[k["name"]]

@@ -37,8 +37,10 @@ class ModelConfig:
     feature_stride: int = 4          # final feature map stride (FEELVOS lineage)
     head_channels: int = 128
     ma_channels: int = 128           # interaction-feature / memory channels
-    norm: str = "gn"                 # backbone/encoder norm; the port has "gn" only
-    head_norm: str = "gn"            # decoder-head norm; the port has "gn" only
+    # backbone/encoder norm and decoder-head norm: "gn" | "bn" | "syncbn"
+    # | "ln" | "frozen" (models/layers.make_norm)
+    norm: str = "gn"
+    head_norm: str = "gn"
     gn_groups: int = 32
     dtype: str = "bfloat16"          # activations; params stay float32
 
@@ -144,6 +146,27 @@ class Config:
     mesh: MeshConfig = MeshConfig()
     davis_root: str = "/data/DAVIS"
     snapshot_dir: str = "snapshots"
+
+
+BATCH_STAT_NORMS = ("bn", "syncbn")
+
+
+def check_params_only(model_cfg: ModelConfig, path: str) -> None:
+    """Raise for a model whose norms need batch statistics ('bn',
+    'syncbn') on a path that JAX runs with the model's `params` alone (the
+    Evaluator, the streaming and batch engines, export, the trainers):
+    there Flax's BatchNorm has no `batch_stats` collection to read or
+    update, so the JAX path cannot run it and the port refuses it too."""
+    bad = {k: v for k, v in (("norm", model_cfg.norm),
+                             ("head_norm", model_cfg.head_norm))
+           if v in BATCH_STAT_NORMS}
+    if bad:
+        raise ValueError(
+            f"{path} does not run BatchNorm "
+            f"({', '.join(f'{k}={v!r}' for k, v in bad.items())}): the JAX "
+            f"package's {path} applies the model with its `params` only, "
+            f"without the `batch_stats` that BatchNorm's batch statistics "
+            f"need; use 'gn', 'ln' or 'frozen'")
 
 
 def tiny_test_config() -> Config:

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cvpr2020_manet_tpu_torch.config import Config
+from cvpr2020_manet_tpu_torch.config import Config, check_params_only
 from cvpr2020_manet_tpu_torch.data.davis import IMAGENET_MEAN
 from cvpr2020_manet_tpu_torch.device import resolve_device
 from cvpr2020_manet_tpu_torch.interactive.scribbles import (
@@ -217,6 +217,7 @@ class Evaluator:
         `cp_mesh`: a `parallel.mesh.Mesh`; the matching-memory rows then
         shard over its context members (`parallel/cp_matching.py`, the
         allgather schedule)."""
+        check_params_only(model.cfg, "Evaluator")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cvpr2020_manet_tpu_torch.config import Config
+from cvpr2020_manet_tpu_torch.config import Config, check_params_only
 from cvpr2020_manet_tpu_torch.device import resolve_device
 from cvpr2020_manet_tpu_torch.engine.evaluator import (
     _FETCH_POOL, bucket_mask_bits, object_bucket_for, pack_labels,
@@ -59,6 +59,7 @@ class BatchPropagator:
                  device=None):
         if ingest not in ("rgb", "yuv420"):
             raise ValueError(f"unknown ingest format {ingest!r}")
+        check_params_only(model.cfg, "BatchPropagator")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()

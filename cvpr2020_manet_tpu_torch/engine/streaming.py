@@ -43,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cvpr2020_manet_tpu_torch.config import Config
+from cvpr2020_manet_tpu_torch.config import Config, check_params_only
 from cvpr2020_manet_tpu_torch.device import resolve_device
 from cvpr2020_manet_tpu_torch.engine.evaluator import (
     _FETCH_POOL, aligned_mask_bits, downsample_mask_max, live_page_bucket,
@@ -63,6 +63,7 @@ class StreamingIVOS:
                  cp_mesh=None):
         """`cp_mesh`: a `parallel.mesh.Mesh` over which the live memory
         pages shard (context-parallel matching)."""
+        check_params_only(model.cfg, "StreamingIVOS")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()

@@ -29,8 +29,20 @@ Data: synthetic moving squares by default, or DAVIS clips (`--davis_root`,
 uint8 frames and labels and `ingest_batch` normalizes them on the device
 at the top of the step (4x fewer upload bytes).
 
-Left out for now (ROADMAP): multi-process and context-parallel training
-(`--distributed` and its flags raise).
+Data parallelism over processes: `--distributed` (with `--coordinator`,
+`--num_processes`, `--process_id` or the MANET_* environment variables,
+`parallel/distributed.py`) runs one rank per card; `batch_size` is the
+global batch and each rank feeds its share from its own data shard. The
+trainers all-reduce the gradients (one flat buffer) and the metrics and
+divide by the world size, so every rank takes the same step, the global
+batch's mean; only rank 0 logs, snapshots and exports.
+
+    python -m cvpr2020_manet_tpu_torch.engine.train_stage1 --distributed \
+        --coordinator HOST:PORT --num_processes N --process_id R
+
+`make_cp_train_step` is the context-parallel step: each sample's global
+matching runs over the context members of a `parallel/mesh.py` mesh, each
+against its share of the reference rows (`parallel/cp_matching.py`).
 """
 
 from __future__ import annotations
@@ -42,16 +54,22 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from cvpr2020_manet_tpu_torch.config import Config, tiny_test_config
+from cvpr2020_manet_tpu_torch.config import (
+    Config, check_params_only, tiny_test_config)
 from cvpr2020_manet_tpu_torch.device import resolve_device
 from cvpr2020_manet_tpu_torch.engine.losses import (
     bootstrap_ratio_schedule, bootstrapped_cross_entropy)
 from cvpr2020_manet_tpu_torch.engine.train_state import TrainState
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 from cvpr2020_manet_tpu_torch.models.manet import MANet
+from cvpr2020_manet_tpu_torch.parallel import distributed
+from cvpr2020_manet_tpu_torch.parallel.cp_matching import (
+    trainable_local_then_min)
+from cvpr2020_manet_tpu_torch.parallel.mesh import Mesh
 from cvpr2020_manet_tpu_torch.utils.ingest import preprocess_frames
 
 
@@ -138,12 +156,18 @@ def forward_sample(model: MANet, feat: torch.Tensor, emb: torch.Tensor,
             resize_bilinear(prop_logits, (h, w)))
 
 
-def make_loss_fn(model: MANet, cfg: Config):
+def make_loss_fn(model: MANet, cfg: Config, gmap_fn=None):
     """-> loss_fn(batch, step) -> (loss, metrics): the forward of one step,
-    on a batch of device tensors, at optimizer step `step`."""
+    on a batch of device tensors, at optimizer step `step`.
+
+    gmap_fn(query (Nq, C), ref (Nk, C), ref_onehot (Nk, O), sample) ->
+    (Nq, O): the global matching of sample `sample` of the batch (default:
+    the model's, kernel 4)."""
     tcfg = cfg.train
     o = cfg.model.max_objects + 1
     s = cfg.model.feature_stride
+    if gmap_fn is None:
+        gmap_fn = lambda q, k, oh, i: model._global_matching(q, k, oh, None)
 
     def loss_fn(batch, step: int):
         batch = ingest_batch(batch)
@@ -160,21 +184,21 @@ def make_loss_fn(model: MANet, cfg: Config):
             return l_prop + 0.5 * l_int, l_prop, l_int
 
         per_sample = []
-        for feat_s, emb_s, labels, obj_valid in zip(
-                feat, emb, batch["labels"], batch["obj_valid"]):
+        for i, (feat_s, emb_s, labels, obj_valid) in enumerate(zip(
+                feat, emb, batch["labels"], batch["obj_valid"])):
             # global matching outside the checkpointed tail: its kernel runs
             # once in the forward, and the tail takes the small (h*w, O) map
             # as an input; gradients reach the kernel's inputs through the
             # Function's saved winners
             ce = emb_s.shape[-1]
             ref_oh = _downsample_onehot(labels[0], s, o)
-            gm = model._global_matching(emb_s[2].reshape(-1, ce),
-                                        emb_s[0].reshape(-1, ce),
-                                        ref_oh.reshape(-1, o), None)
+            gm = gmap_fn(emb_s[2].reshape(-1, ce), emb_s[0].reshape(-1, ce),
+                         ref_oh.reshape(-1, o), i)
             args = (feat_s, emb_s, gm, labels, obj_valid)
             per_sample.append(checkpoint(tail, *args, use_reentrant=False)
                               if tcfg.remat else tail(*args))
-        loss, l_prop, l_int = (torch.stack(v).mean() for v in zip(*per_sample))
+        loss, l_prop, l_int = (torch.stack(v).mean()
+                               for v in zip(*per_sample))
         return loss, {"loss": loss, "loss_prop": l_prop, "loss_int": l_int}
 
     return loss_fn
@@ -182,13 +206,19 @@ def make_loss_fn(model: MANet, cfg: Config):
 
 def step_with(loss_fn):
     """-> train_step(state, batch, *args): one forward,
-    `loss_fn(batch, state.step, *args)`, one backward and one optimizer
-    update; returns the metrics as floats."""
+    `loss_fn(batch, state.step, *args)`, one backward, the gradients'
+    all-reduce in a data-parallel run, and one optimizer update; returns
+    the metrics as floats (in a data-parallel run their mean over the
+    ranks, the same on every rank)."""
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *args):
         loss, metrics = loss_fn(batch, state.step, *args)
         loss.backward()
+        state.allreduce_gradients()
         state.apply_gradients()
-        return {k: float(v.detach()) for k, v in metrics.items()}
+        values = [v.detach().float().reshape(1) for v in metrics.values()]
+        if state.group is not None:
+            distributed.all_reduce_mean_(values, state.group)
+        return {k: float(v) for k, v in zip(metrics, values)}
 
     return train_step
 
@@ -205,11 +235,49 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def make_cp_train_step(model: MANet, cfg: Config, mesh: Mesh):
+    """The context-parallel stage-1 step (JAX `make_cp_train_step`) ->
+    step(state, batch) -> metrics.
+
+    The batch splits evenly over the mesh's 'data' rows, so the batch's
+    mean loss is the mean of the rows' means. Each sample's global matching runs on the
+    'context' members of its data row: member m matches the query against
+    rows [m Nk/ctx, (m + 1) Nk/ctx) of the reference through
+    `GlobalMatchingTrainable` (kernel 4 on a card) and the members'
+    (Nq, O) maps meet on the query's device in a differentiable min, out
+    of the checkpointed tail as in the one-device step. The rest of the
+    step runs on the model's device. Unlike JAX, which gives each member
+    Nk // ctx rows and drops the tail, a reference whose rows do not split
+    evenly raises."""
+    check_params_only(model.cfg, "make_cp_train_step")
+    data = mesh.devices.shape[0]
+    if cfg.train.batch_size % data:
+        raise ValueError(f"batch {cfg.train.batch_size} does not split over "
+                         f"{data} data rows")
+    per_row = cfg.train.batch_size // data
+
+    def gmap_fn(query, ref, ref_onehot, i):
+        return trainable_local_then_min(query, ref, ref_onehot,
+                                        list(mesh.devices[i // per_row]))
+
+    train_step = step_with(make_loss_fn(model, cfg, gmap_fn))
+    device = next(model.parameters()).device
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        return train_step(state, to_device(batch, device))
+
+    return step
+
+
 class Trainer:
     """Stage-1 trainer on one device (`cuda` unless `device` says
-    otherwise). Weights are drawn from `seed` (default `cfg.train.seed`)."""
+    otherwise). Weights are drawn from `seed` (default `cfg.train.seed`)
+    on the CPU, so every rank of a data-parallel run starts from the same
+    weights. Once `parallel/distributed.initialize` has joined a group, it
+    trains data-parallel over the world."""
 
     def __init__(self, cfg: Config, device=None, seed: int | None = None):
+        check_params_only(cfg.model, "Trainer")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = MANet(cfg.model, device=self.device,
@@ -309,11 +377,16 @@ def add_train_override_args(p: argparse.ArgumentParser) -> None:
                    help="ship raw uint8 batches; normalize on the device "
                         "(ingest_batch): 4x fewer upload bytes")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training: not ported yet (ROADMAP "
-                        "queue 1, distributed training); raises")
-    p.add_argument("--coordinator", default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+                   help="data parallelism over processes, one rank a card: "
+                        "join the torch.distributed group "
+                        "(parallel/distributed.py); batch_size is the "
+                        "GLOBAL batch and this rank feeds its share")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 (or MANET_COORDINATOR)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="world size (or MANET_NUM_PROCESSES)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this rank (or MANET_PROCESS_ID)")
 
 
 def apply_train_overrides(cfg: Config, args) -> Config:
@@ -333,14 +406,24 @@ def apply_train_overrides(cfg: Config, args) -> Config:
 
 
 def base_config(args) -> Config:
-    if (args.distributed or args.coordinator is not None
-            or args.num_processes is not None or args.process_id is not None):
-        raise NotImplementedError(
-            "multi-process training (--distributed, --coordinator, "
-            "--num_processes, --process_id) is not ported yet: ROADMAP.md "
-            "queue 1, distributed training")
     return apply_train_overrides(
         tiny_test_config() if args.tiny else Config(), args)
+
+
+def join_group(args) -> bool:
+    """With `--distributed`, join the process group (on the card, the
+    default backend); -> whether this call joined one (the CLI leaves it
+    at its end)."""
+    if not args.distributed or dist.is_initialized():
+        return False
+    distributed.initialize(args.coordinator, args.num_processes,
+                           args.process_id)
+    return dist.is_initialized()
+
+
+def leave_group(joined: bool) -> None:
+    if joined:
+        dist.destroy_process_group()
 
 
 def make_feed(cfg: Config, args, clip_len: int = 3,
@@ -349,9 +432,15 @@ def make_feed(cfg: Config, args, clip_len: int = 3,
     `--grain` workers over the dataset (shards by clip index), else the
     sampler in this process (seed + shard_index, and `shard=` only when
     `--shard_count` > 1), else synthetic clips. `adapter` is a dataset in
-    place of the DAVIS tree at `--davis_root` (stage 2's YouTube-VOS)."""
-    b = cfg.train.batch_size
-    seed = cfg.train.seed + args.shard_index
+    place of the DAVIS tree at `--davis_root` (stage 2's YouTube-VOS).
+    In a data-parallel run each rank feeds its `local_batch_size`, and its
+    rank is its shard when `--shard_count` is 1."""
+    b = distributed.local_batch_size(cfg.train.batch_size)
+    shard_index, shard_count = args.shard_index, args.shard_count
+    if distributed.world_size() > 1 and shard_count == 1:
+        shard_index, shard_count = distributed.rank(), \
+            distributed.world_size()
+    seed = cfg.train.seed + shard_index
     has_data = args.davis_root is not None or adapter is not None
     if args.grain:
         if not has_data:
@@ -362,20 +451,19 @@ def make_feed(cfg: Config, args, clip_len: int = 3,
         return make_train_iterator(
             args.davis_root or "", cfg, clip_len=clip_len,
             num_workers=args.grain_workers, seed=cfg.train.seed,
-            shard_index=args.shard_index, shard_count=args.shard_count,
-            emit_uint8=args.uint8, adapter=adapter)
+            shard_index=shard_index, shard_count=shard_count,
+            emit_uint8=args.uint8, batch_size=b, adapter=adapter)
     if has_data:
         from cvpr2020_manet_tpu_torch.data.davis import DavisTrainDataset
         ds = DavisTrainDataset(
             args.davis_root or "", cfg, clip_len=clip_len, adapter=adapter,
             seed=seed, emit_uint8=args.uint8,
-            shard=((args.shard_index, args.shard_count)
-                   if args.shard_count > 1 else None))
+            shard=((shard_index, shard_count) if shard_count > 1 else None))
         return (ds.batch(b) for _ in itertools.count())
     rng = np.random.default_rng(seed)
     return (synthetic_batch(cfg, rng, num_objects=args.objects,
                             random_entry=args.random_entry,
-                            as_uint8=args.uint8)
+                            as_uint8=args.uint8, batch_size=b)
             for _ in itertools.count())
 
 
@@ -384,34 +472,45 @@ def run_training(trainer, args, batches: Iterator[Dict[str, np.ndarray]]
     """The loop both CLIs share: resume from `--snapshot_dir`, train
     `--steps` steps on the next batches of `batches` (fed synchronously, as
     in JAX), log, checkpoint, export; closes `batches` at the end (a
-    worker feed stops its workers)."""
+    worker feed stops its workers). In a data-parallel run every rank
+    restores from the shared directory and only rank 0 logs, saves (the
+    others wait for it at a barrier) and exports."""
     from cvpr2020_manet_tpu_torch.utils.checkpoint import (
         CheckpointManager, export_release)
     from cvpr2020_manet_tpu_torch.utils.logging import MetricLogger
     cfg = trainer.cfg
+    main_rank = distributed.rank() == 0
+
+    def save():
+        if main_rank:
+            mgr.save(trainer.state)
+        distributed.barrier()
+
     mgr = None
     if args.snapshot_dir:
         mgr = CheckpointManager(args.snapshot_dir)
         if mgr.latest_step() is not None:
             mgr.restore(trainer.state)
-            print(f"resumed from step {trainer.state.step}")
+            if main_rank:
+                print(f"resumed from step {trainer.state.step}")
     start = trainer.state.step
-    logger = MetricLogger(args.log_dir)
+    logger = MetricLogger(args.log_dir) if main_rank else None
     try:
         for step in range(start, start + args.steps):
             metrics = trainer.train_step(next(batches))
-            if step % max(1, cfg.train.log_every // 10) == 0:
+            if logger is not None and step % max(1, cfg.train.log_every // 10) == 0:
                 logger.write(step, metrics)
             if mgr is not None and (step + 1) % cfg.train.checkpoint_every == 0:
-                mgr.save(trainer.state)
+                save()
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
         close = getattr(batches, "close", None)
         if close is not None:
             close()
     if mgr is not None:
-        mgr.save(trainer.state)
-    if args.release:
+        save()
+    if args.release and main_rank:
         export_release(trainer.model.state_dict(), args.release)
         print(f"release exported to {args.release}", flush=True)
 
@@ -420,9 +519,13 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     add_train_override_args(p)
     args = p.parse_args(argv)
-    cfg = base_config(args)
-    trainer = Trainer(cfg)
-    run_training(trainer, args, make_feed(cfg, args))
+    joined = join_group(args)
+    try:
+        cfg = base_config(args)
+        trainer = Trainer(cfg)
+        run_training(trainer, args, make_feed(cfg, args))
+    finally:
+        leave_group(joined)
 
 
 if __name__ == "__main__":

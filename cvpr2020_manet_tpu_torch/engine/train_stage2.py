@@ -27,7 +27,13 @@ step.
 Randomness: each sample gets a seed from the trainer's `torch.Generator`,
 and each round draws its strokes from a generator seeded from it, so the
 recompute of a checkpointed round draws the same strokes. The draws are
-not JAX's; their distribution is.
+not JAX's; their distribution is. In a data-parallel run every rank draws
+the seeds of the whole global batch and takes its own rank's slice, so a
+sample's strokes depend on its place in the global batch only: the ranks
+together draw what one process draws for the global batch (the worst
+frame is an argmin, no draw).
+
+Data parallelism over processes as in stage 1 (`--distributed`).
 """
 
 from __future__ import annotations
@@ -39,16 +45,18 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from cvpr2020_manet_tpu_torch.config import Config
+from cvpr2020_manet_tpu_torch.config import Config, check_params_only
 from cvpr2020_manet_tpu_torch.device import resolve_device
 from cvpr2020_manet_tpu_torch.engine.losses import (
     bootstrap_ratio_schedule, bootstrapped_cross_entropy)
 from cvpr2020_manet_tpu_torch.engine.train_stage1 import (
     _downsample_onehot, add_train_override_args, base_config, encode_batch,
-    ingest_batch, make_feed, run_training, step_with, to_device)
+    ingest_batch, join_group, leave_group, make_feed, run_training, step_with,
+    to_device)
 from cvpr2020_manet_tpu_torch.engine.train_state import TrainState
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 from cvpr2020_manet_tpu_torch.models.manet import NEG_INF, MANet
@@ -238,9 +246,11 @@ def make_train_step(model: MANet, cfg: Config):
 class Stage2Trainer:
     """Stage-2 trainer on one device (`cuda` unless `device` says
     otherwise). Start it from stage-1 weights with
-    `CheckpointManager(stage1_dir).restore_params(trainer.model)`."""
+    `CheckpointManager(stage1_dir).restore_params(trainer.model)`.
+    Data-parallel once a group is joined, as stage 1's `Trainer`."""
 
     def __init__(self, cfg: Config, device=None, seed: int | None = None):
+        check_params_only(cfg.model, "Stage2Trainer")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = MANet(cfg.model, device=self.device,
@@ -252,10 +262,16 @@ class Stage2Trainer:
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
         """One optimizer step on a batch of numpy arrays (or of tensors
-        already on the device)."""
+        already on the device): this rank's share of the global batch."""
         b = batch["images"].shape[0]
-        seeds = torch.randint(1 << 62, (b,), generator=self._gen).tolist()
-        return self._step(self.state, to_device(batch, self.device), seeds)
+        rank, world = 0, 1
+        if self.state.group is not None:
+            rank = dist.get_rank(self.state.group)
+            world = dist.get_world_size(self.state.group)
+        seeds = torch.randint(1 << 62, (b * world,),
+                              generator=self._gen).tolist()
+        return self._step(self.state, to_device(batch, self.device),
+                          seeds[rank * b:(rank + 1) * b])
 
 
 def main(argv=None):
@@ -279,6 +295,15 @@ def main(argv=None):
     p.add_argument("--init_from", default=None,
                    help="stage-1 snapshot dir to take the parameters from")
     args = p.parse_args(argv)
+    joined = join_group(args)
+    try:
+        train(args)
+    finally:
+        leave_group(joined)
+
+
+def train(args) -> None:
+    """The stage-2 CLI's run, in the process group `main` joined."""
     cfg = base_config(args)
     tr = {}
     if args.sim_rounds is not None:

@@ -16,11 +16,14 @@ The schedule's count is 0 for the first update, as `LambdaLR`'s is.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 from torch import nn
 
 from cvpr2020_manet_tpu_torch.config import TrainConfig
+from cvpr2020_manet_tpu_torch.parallel.distributed import (
+    all_reduce_mean_, process_group)
 
 BACKBONE_PREFIX = "encoder.backbone."   # the Flax path key `backbone`
 
@@ -34,7 +37,9 @@ def poly_schedule(total_steps: int, power: float):
 
 
 def param_labels(model: nn.Module) -> dict[str, str]:
-    """'backbone' for the encoder's ResNet trunk, 'heads' for the rest."""
+    """'backbone' for the encoder's ResNet trunk (its convs and norms, the
+    pretrained `FrozenAffine` pairs of `utils/pretrained.py` among them),
+    'heads' for the rest."""
     return {name: "backbone" if name.startswith(BACKBONE_PREFIX) else "heads"
             for name, _ in model.named_parameters()}
 
@@ -58,20 +63,37 @@ def make_optimizer(model: nn.Module, cfg: TrainConfig):
 
 @dataclasses.dataclass
 class TrainState:
-    """Step count, model, optimizer and LR schedule of one training run."""
+    """Step count, model, optimizer and LR schedule of one training run;
+    `group`: the `torch.distributed` process group of a data-parallel run
+    (the world once `parallel/distributed.initialize` has joined one, None
+    in one process)."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
+    group: Any = None
+
+    def _fill_gradients(self) -> None:
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+    def allreduce_gradients(self) -> None:
+        """In a data-parallel run, replace every gradient by its mean over
+        the ranks (one flat all-reduce): the global batch's gradient, as
+        JAX's `pmean` over the data axis gives. A no-op in one process."""
+        if self.group is None:
+            return
+        self._fill_gradients()
+        all_reduce_mean_([p.grad for p in self.model.parameters()],
+                         self.group)
 
     def apply_gradients(self) -> None:
         """One update from the gradients in the parameters' `.grad`. A
         parameter the loss did not reach gets a zero gradient, so that it
         still decays and its momentum still runs, as under optax (torch's
         SGD would skip it)."""
-        for p in self.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        self._fill_gradients()
         self.optimizer.step()
         self.scheduler.step()
         self.optimizer.zero_grad(set_to_none=True)
@@ -80,4 +102,5 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, cfg: TrainConfig) -> "TrainState":
         opt, sched = make_optimizer(model, cfg)
-        return cls(model=model, optimizer=opt, scheduler=sched)
+        return cls(model=model, optimizer=opt, scheduler=sched,
+                   group=process_group())

@@ -1,16 +1,19 @@
 """DeepLabV3+ encoder with pixel-embedding head (NCHW).
 
 Port of the JAX package's `models/encoder.py`: ResNet trunk -> ASPP
-(rates 6/12/18 + image pooling with a 1-group GroupNorm) -> decoder fusing
-the stride-4 low-level feature (GroupNorm groups gcd(gn_groups, 48)) ->
+(rates 6/12/18 + image pooling, whose norm is a 1-group GroupNorm under
+every `norm`) -> decoder fusing the stride-4 low-level feature (GroupNorm
+groups gcd(gn_groups, 48)) ->
 stride-4 `feature` (decoder_channels) and `embedding` (embedding_dim with
 bias, zero-padded to embedding_dim_padded; zeros add 0 to every matching
 distance).
 
 Flax auto-named the ASPP's and the encoder's unnamed submodules
 (`Conv_0`, `GroupNorm_0`, ...) in creation order; here they are
-`aspp.conv.<i>` / `aspp.norm.<i>` in that order, and the encoder's three
-norms are `low_level_norm`, `decoder_norm0`, `decoder_norm1`.
+`aspp.conv.<i>` / `aspp.norm.<i>` in that order (Flax counts each class
+apart: with `norm="bn"` the ASPP's norms are BatchNorm_0..3, GroupNorm_0
+for the pooling branch, BatchNorm_4), and the encoder's three norms are
+`low_level_norm`, `decoder_norm0`, `decoder_norm1`.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from torch import nn
 
 from cvpr2020_manet_tpu_torch.config import ModelConfig
 from cvpr2020_manet_tpu_torch.models.layers import (
-    Conv, GroupNorm, resize_bilinear_axes)
+    Conv, GroupNorm, make_norm, resize_bilinear_axes)
 from cvpr2020_manet_tpu_torch.models.resnet import ResNetBackbone
 
 
@@ -31,8 +34,8 @@ class ASPP(nn.Module):
     """Atrous spatial pyramid pooling @ output stride 16."""
 
     def __init__(self, in_ch: int, channels: int = 256,
-                 rates: tuple[int, ...] = (6, 12, 18), gn_groups: int = 32,
-                 dtype: torch.dtype = torch.bfloat16):
+                 rates: tuple[int, ...] = (6, 12, 18), norm: str = "gn",
+                 gn_groups: int = 32, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         convs = [Conv(in_ch, channels, 1, dtype=dtype)]
         convs += [Conv(in_ch, channels, 3, padding=r, dilation=r, dtype=dtype)
@@ -40,9 +43,10 @@ class ASPP(nn.Module):
         convs.append(Conv(in_ch, channels, 1, dtype=dtype))       # pooling
         convs.append(Conv(channels * (len(rates) + 2), channels, 1,
                           dtype=dtype))                           # project
-        norms = [GroupNorm(gn_groups, channels) for _ in range(len(rates) + 1)]
+        norm_ctor = make_norm(norm, dtype, gn_groups)
+        norms = [norm_ctor(channels) for _ in range(len(rates) + 1)]
         norms.append(GroupNorm(1, channels))                      # pooling
-        norms.append(GroupNorm(gn_groups, channels))              # project
+        norms.append(norm_ctor(channels))                         # project
         self.conv = nn.ModuleList(convs)
         self.norm = nn.ModuleList(norms)
         self.n_rates = len(rates)
@@ -68,22 +72,23 @@ class Encoder(nn.Module):
         dtype = getattr(torch, cfg.dtype)
         self.backbone = ResNetBackbone(
             depths=cfg.backbone_depths, width=cfg.backbone_width,
-            output_stride=cfg.output_stride, gn_groups=cfg.gn_groups,
-            dtype=dtype)
+            output_stride=cfg.output_stride, norm=cfg.norm,
+            gn_groups=cfg.gn_groups, dtype=dtype)
         self.aspp = ASPP(self.backbone.out_channels, cfg.aspp_channels,
-                         gn_groups=cfg.gn_groups, dtype=dtype)
+                         norm=cfg.norm, gn_groups=cfg.gn_groups, dtype=dtype)
         low_ch = cfg.backbone_width * 4
         self.low_level_proj = Conv(low_ch, cfg.low_level_channels, 1,
                                    dtype=dtype)
-        self.low_level_norm = GroupNorm(
-            math.gcd(cfg.gn_groups, cfg.low_level_channels),
+        self.low_level_norm = make_norm(
+            cfg.norm, dtype, math.gcd(cfg.gn_groups, cfg.low_level_channels))(
             cfg.low_level_channels)
+        norm_ctor = make_norm(cfg.norm, dtype, cfg.gn_groups)
         self.decoder_conv0 = Conv(cfg.aspp_channels + cfg.low_level_channels,
                                   cfg.decoder_channels, 3, dtype=dtype)
-        self.decoder_norm0 = GroupNorm(cfg.gn_groups, cfg.decoder_channels)
+        self.decoder_norm0 = norm_ctor(cfg.decoder_channels)
         self.decoder_conv1 = Conv(cfg.decoder_channels, cfg.decoder_channels,
                                   3, dtype=dtype)
-        self.decoder_norm1 = GroupNorm(cfg.gn_groups, cfg.decoder_channels)
+        self.decoder_norm1 = norm_ctor(cfg.decoder_channels)
         self.embedding_head = Conv(cfg.decoder_channels, cfg.embedding_dim, 1,
                                    bias=True, dtype=dtype)
 

@@ -12,21 +12,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvpr2020_manet_tpu_torch.models.layers import Conv, GroupNorm
+from cvpr2020_manet_tpu_torch.models.layers import Conv, make_norm
 
 
 class ConvStack(nn.Module):
-    """Dense 3x3 conv -> GroupNorm -> ReLU stack (Flax names conv<i>,
-    GroupNorm_<i> -> norm<i>)."""
+    """Dense 3x3 conv -> norm -> ReLU stack (Flax names conv<i>, and
+    <norm class>_<i> -> norm<i>)."""
 
-    def __init__(self, in_ch: int, channels: int, depth: int, gn_groups: int,
-                 dtype: torch.dtype):
+    def __init__(self, in_ch: int, channels: int, depth: int, norm: str,
+                 gn_groups: int, dtype: torch.dtype):
         super().__init__()
         self.depth, self.dtype = depth, dtype
+        norm_ctor = make_norm(norm, dtype, gn_groups)
         for i in range(depth):
             self.add_module(f"conv{i}", Conv(in_ch if i == 0 else channels,
                                              channels, 3, dtype=dtype))
-            self.add_module(f"norm{i}", GroupNorm(gn_groups, channels))
+            self.add_module(f"norm{i}", norm_ctor(channels))
 
     def forward(self, x: torch.Tensor | None,
                 pre0: torch.Tensor | None = None) -> torch.Tensor:
@@ -47,9 +48,10 @@ class InteractionHead(nn.Module):
     (O, 1, h, w) f32)."""
 
     def __init__(self, in_ch: int, head_channels: int, ma_channels: int,
-                 gn_groups: int, dtype: torch.dtype):
+                 norm: str, gn_groups: int, dtype: torch.dtype):
         super().__init__()
-        self.stack = ConvStack(in_ch, head_channels, 2, gn_groups, dtype)
+        self.stack = ConvStack(in_ch, head_channels, 2, norm, gn_groups,
+                               dtype)
         self.int_feature = Conv(head_channels, ma_channels, 3, bias=True,
                                 dtype=dtype)
         self.logit = Conv(ma_channels, 1, 1, bias=True, dtype=torch.float32)
@@ -62,10 +64,11 @@ class InteractionHead(nn.Module):
 class DynamicSegHead(nn.Module):
     """(O, Cf + 3 + Cma, h, w) -> logit (O, 1, h, w) f32."""
 
-    def __init__(self, in_ch: int, head_channels: int, gn_groups: int,
-                 dtype: torch.dtype):
+    def __init__(self, in_ch: int, head_channels: int, norm: str,
+                 gn_groups: int, dtype: torch.dtype):
         super().__init__()
-        self.stack = ConvStack(in_ch, head_channels, 3, gn_groups, dtype)
+        self.stack = ConvStack(in_ch, head_channels, 3, norm, gn_groups,
+                               dtype)
         self.logit = Conv(head_channels, 1, 1, bias=True, dtype=torch.float32)
 
     def forward(self, x: torch.Tensor | None,

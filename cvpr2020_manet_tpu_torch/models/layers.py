@@ -1,13 +1,18 @@
-"""Shared layers: Flax-semantics conv and GroupNorm, resize.
+"""Shared layers: Flax-semantics conv and norms, resize.
 
-Port of the JAX package's `models/layers.py`. Two Flax behaviours are kept
-on purpose:
+Port of the JAX package's `models/layers.py`. Flax behaviours kept on
+purpose:
 
 - `Conv`: parameters stay float32 and are cast, with the input, to the
   module's compute dtype at call time (Flax `nn.Conv(dtype=...)`).
-- `GroupNorm`: epsilon 1e-6 (Flax's default; PyTorch's is 1e-5), with
-  statistics and affine in float32 and the result cast back to the input
-  dtype (Flax `nn.GroupNorm(dtype=...)`).
+- The norms of `make_norm` ('gn', 'bn', 'syncbn', 'ln', 'frozen'):
+  `GroupNorm` (epsilon 1e-6, Flax's default; PyTorch's is 1e-5),
+  `BatchNorm` (batch statistics always, epsilon 1e-5, running averages at
+  momentum 0.99 that never feed the output), `LayerNorm` over the channels
+  of each pixel (epsilon 1e-6) take their statistics and affine in float32
+  and cast the result back to the input dtype; the statistics use Flax's
+  fast variance E[x^2] - E[x]^2 clipped at 0. `FrozenAffine` (folded
+  pretrained BN) multiplies and adds in the compute dtype, as JAX's does.
 
 Modules work in NCHW. `resize_bilinear` / `resize_nearest` take the JAX
 package's layout (spatial axes third- and second-to-last) and implement
@@ -53,6 +58,8 @@ class Conv(nn.Module):
 class GroupNorm(nn.Module):
     """Flax `nn.GroupNorm` semantics on NCHW input (eps 1e-6, f32 math)."""
 
+    FLAX_NAME = "GroupNorm"
+
     def __init__(self, groups: int, channels: int, eps: float = 1e-6):
         super().__init__()
         self.groups, self.eps = groups, eps
@@ -64,11 +71,139 @@ class GroupNorm(nn.Module):
                             self.eps).to(x.dtype)
 
 
+def _chw(t: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector (C,) as (C, 1, 1), against NCHW."""
+    return t[:, None, None]
+
+
+def _normalize(x32, mean, var, scale, bias, eps: float) -> torch.Tensor:
+    """Flax's `_normalize` in f32: (x - mean) * (rsqrt(var + eps) * scale)
+    + bias, every argument broadcast against x."""
+    return (x32 - mean) * (torch.rsqrt(var + eps) * scale) + bias
+
+
+class BatchNorm(nn.Module):
+    """Flax `nn.BatchNorm(use_running_average=False, momentum=0.99)` on
+    NCHW input: the moments of the batch over N, H and W, in training and
+    in eval alike (the JAX model's `make_norm('bn')`). Every call updates
+    the running `mean` / `var` buffers as Flax's `apply(...,
+    mutable=['batch_stats'])` does; they never feed the output.
+
+    `group`: with it, the per-channel sum, sum of squares and count are
+    summed over the ranks of that `torch.distributed` process group before
+    the moments are formed ('syncbn', Flax's `axis_name`), through the
+    autograd-aware all-reduce, so the backward is the full batch's too."""
+
+    FLAX_NAME = "BatchNorm"
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.99, sync: bool = False, group=None):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.sync, self.group = sync, group
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def _moments(self, x32: torch.Tensor):
+        dims = (0, 2, 3)
+        if not self.sync:
+            return x32.mean(dims), x32.square().mean(dims)
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "norm='syncbn' needs a torch.distributed process group "
+                "(parallel/distributed.initialize); use 'bn' in one process")
+        from torch.distributed.nn.functional import all_reduce
+        n = torch.full_like(x32[0, :, 0, 0], x32.numel() / x32.shape[1])
+        group = dist.group.WORLD if self.group is None else self.group
+        sums = all_reduce(torch.stack([x32.sum(dims), x32.square().sum(dims),
+                                       n]), group=group)
+        return sums[0] / sums[2], sums[1] / sums[2]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean, mean2 = self._moments(x32)
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        return _normalize(x32, _chw(mean), _chw(var), _chw(self.weight),
+                          _chw(self.bias), self.eps).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Flax `nn.LayerNorm` over the channel axis at each pixel (NCHW dim 1):
+    eps 1e-6, f32 statistics and affine, the result in the input dtype."""
+
+    FLAX_NAME = "LayerNorm"
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(1, keepdim=True)
+        var = torch.clamp(x32.square().mean(1, keepdim=True) - mean.square(),
+                          min=0.0)
+        return _normalize(x32, mean, var, _chw(self.weight), _chw(self.bias),
+                          self.eps).to(x.dtype)
+
+
+class FrozenAffine(nn.Module):
+    """Frozen BatchNorm as a per-channel affine, y = x * scale + bias, the
+    JAX package's `FrozenAffine`: pretrained BN statistics folded into
+    (scale, bias) (`utils/pretrained.py`). Scale and bias are cast to the
+    compute dtype before the product (bf16 at the flagship), not computed
+    in f32 as the other norms are."""
+
+    FLAX_NAME = "FrozenAffine"
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return (x * _chw(self.weight.to(dt))
+                + _chw(self.bias.to(dt))).to(x.dtype)
+
+
+NORMS = ("gn", "bn", "syncbn", "ln", "frozen")
+NORM_MODULES = (GroupNorm, BatchNorm, LayerNorm, FrozenAffine)
+
+
+def make_norm(norm: str, dtype: torch.dtype, gn_groups: int = 32,
+              group=None):
+    """-> a constructor `ctor(channels)` of the norm module `norm` names
+    (JAX `make_norm`): 'gn' GroupNorm with `gn_groups` groups, 'bn'
+    BatchNorm, 'syncbn' BatchNorm with its moments summed over the process
+    group `group` (default: the world), 'ln' LayerNorm, 'frozen'
+    FrozenAffine computed in `dtype`."""
+    if norm == "gn":
+        return lambda c: GroupNorm(gn_groups, c)
+    if norm in ("bn", "syncbn"):
+        return lambda c: BatchNorm(c, sync=norm == "syncbn", group=group)
+    if norm == "ln":
+        return LayerNorm
+    if norm == "frozen":
+        return lambda c: FrozenAffine(c, dtype)
+    raise ValueError(f"unknown norm {norm!r}: one of {NORMS}")
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init at the scale of Flax's defaults: conv kernels
     normal with variance 1/fan_in (cut at 2 sigma, as lecun_normal),
-    biases 0, norm scales 1. Runs on the CPU so the weights do not depend
-    on the device."""
+    biases 0, every norm's scale 1 and bias 0, BatchNorm's running mean 0
+    and variance 1. Runs on the CPU so the weights do not depend on the
+    device."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, Conv):
@@ -77,9 +212,12 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.weight.copy_(w.clamp_(-2.0, 2.0) / math.sqrt(fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, GroupNorm):
+            elif isinstance(m, NORM_MODULES):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+                if isinstance(m, BatchNorm):
+                    m.mean.zero_()
+                    m.var.fill_(1.0)
 
 
 # ------------------------------------------------------------------ resize

@@ -19,6 +19,13 @@ goes through the argmin-routed `torch.autograd.Function`s of
 `ops/trainable.py` instead, whose forwards are the kernels' argmin
 variants; inference keeps the leaner kernels.
 
+Norms: `cfg.norm` (backbone and encoder) and `cfg.head_norm` (the heads'
+conv stacks), any of `models/layers.make_norm`'s. With 'bn' / 'syncbn'
+the methods use batch statistics and update the running averages, as the
+JAX model's `apply(variables, ..., mutable=["batch_stats"])`; the engines,
+export and the trainers refuse them (`config.check_params_only`), since
+JAX's versions pass `params` alone.
+
 `matching_backend="int8"` is the opt-in int8 serving mode (the JAX
 model's `pallas_int8`): global matching quantizes the memory and the
 queries to int8 and runs the int8 tensor-core kernel. Training
@@ -80,18 +87,16 @@ class MANet(nn.Module):
                              f"{MATCHING_BACKENDS}")
         self.trainable_matching = trainable_matching
         self.matching_backend = matching_backend
-        if cfg.norm != "gn" or cfg.head_norm != "gn":
-            raise NotImplementedError(
-                f"norm={cfg.norm!r}, head_norm={cfg.head_norm!r}: only 'gn' "
-                "is ported")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         cd, cma = cfg.decoder_channels, cfg.ma_channels
         self.encoder = Encoder(cfg)
         self.interaction_head = InteractionHead(
-            cd + 3, cfg.head_channels, cma, cfg.gn_groups, self.dtype)
+            cd + 3, cfg.head_channels, cma, cfg.head_norm, cfg.gn_groups,
+            self.dtype)
         self.propagation_head = DynamicSegHead(
-            cd + 3 + cma, cfg.head_channels, cfg.gn_groups, self.dtype)
+            cd + 3 + cma, cfg.head_channels, cfg.head_norm, cfg.gn_groups,
+            self.dtype)
         self.memory_aggregator = MemoryAggregator(cma, self.dtype)
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(resolve_device(device))

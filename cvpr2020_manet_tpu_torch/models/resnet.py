@@ -15,29 +15,30 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvpr2020_manet_tpu_torch.models.layers import Conv, GroupNorm
+from cvpr2020_manet_tpu_torch.models.layers import Conv, make_norm
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 bottleneck with projection shortcut."""
 
     def __init__(self, in_ch: int, channels: int, *, stride: int = 1,
-                 dilation: int = 1, gn_groups: int = 32,
+                 dilation: int = 1, norm: str = "gn", gn_groups: int = 32,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         out_ch = channels * 4
+        norm_ctor = make_norm(norm, dtype, gn_groups)
         self.conv1 = Conv(in_ch, channels, 1, dtype=dtype)
-        self.norm1 = GroupNorm(gn_groups, channels)
+        self.norm1 = norm_ctor(channels)
         self.conv2 = Conv(channels, channels, 3, stride=stride,
                           padding=dilation, dilation=dilation, dtype=dtype)
-        self.norm2 = GroupNorm(gn_groups, channels)
+        self.norm2 = norm_ctor(channels)
         self.conv3 = Conv(channels, out_ch, 1, dtype=dtype)
-        self.norm3 = GroupNorm(gn_groups, out_ch)
+        self.norm3 = norm_ctor(out_ch)
         if in_ch != out_ch or stride != 1:
             # Flax 'SAME' on a 1x1 stride-2 conv pads nothing
             self.shortcut = Conv(in_ch, out_ch, 1, stride=stride, padding=0,
                                  dtype=dtype)
-            self.shortcut_norm = GroupNorm(gn_groups, out_ch)
+            self.shortcut_norm = norm_ctor(out_ch)
         else:
             self.shortcut = None
 
@@ -54,15 +55,15 @@ class ResNetBackbone(nn.Module):
     """x (B, 3, H, W) -> (low_level @ stride 4, trunk @ output_stride)."""
 
     def __init__(self, depths: Sequence[int] = (3, 4, 23, 3), width: int = 64,
-                 output_stride: int = 16, gn_groups: int = 32,
-                 dtype: torch.dtype = torch.bfloat16):
+                 output_stride: int = 16, norm: str = "gn",
+                 gn_groups: int = 32, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if output_stride not in (8, 16):
             raise ValueError(f"output_stride {output_stride}: 8 or 16")
         self.dtype = dtype
         # stem: 7x7/2 conv (pad 3) + 3x3/2 max-pool (pad 1) -> stride 4
         self.stem_conv = Conv(3, width, 7, stride=2, padding=3, dtype=dtype)
-        self.stem_norm = GroupNorm(gn_groups, width)
+        self.stem_norm = make_norm(norm, dtype, gn_groups)(width)
         # (stride, dilation) per stage for the requested output stride
         stage_cfg = ([(1, 1), (2, 1), (2, 1), (1, 2)] if output_stride == 16
                      else [(1, 1), (2, 1), (1, 2), (1, 4)])
@@ -78,7 +79,8 @@ class ResNetBackbone(nn.Module):
                 name = f"stage{stage + 1}_block{b}"
                 self.add_module(name, Bottleneck(
                     in_ch, ch, stride=stride if b == 0 else 1,
-                    dilation=dilation * mg, gn_groups=gn_groups, dtype=dtype))
+                    dilation=dilation * mg, norm=norm, gn_groups=gn_groups,
+                    dtype=dtype))
                 in_ch = ch * 4
                 names.append(name)
             self.block_names.append(names)

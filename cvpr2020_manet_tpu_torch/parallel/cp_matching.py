@@ -20,6 +20,13 @@ the same (Nq, O) normalized distances as global matching over all rows:
 The min combine is exact on normalized distances: the normalization is
 monotone, so min-of-normalized equals normalize-of-min.
 
+Training (`trainable_local_then_min`, the cp train step's): each member
+matches its share of the rows through `GlobalMatchingTrainable` (kernel 4
+on a card, the plain version on the CPU; JAX backs its shards with the
+jnp oracle), and the members' maps meet in a differentiable min on the
+query's device, so the gradient reaches each key through the member that
+won.
+
 Every member computes the whole result; data row 0 of the mesh runs it
 (the data axis replicates) and the result goes to the query's device.
 The int8 backend has no context-parallel fold: an engine with a `cp_mesh`
@@ -37,6 +44,7 @@ from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
     _round_up, global_matching_prepared, prepare_ref)
 from cvpr2020_manet_tpu_torch.ops.ring_matching_cuda import (
     RingShard, ring_matching_step)
+from cvpr2020_manet_tpu_torch.ops.trainable import GlobalMatchingTrainable
 from cvpr2020_manet_tpu_torch.parallel.mesh import Mesh, shard_context
 from cvpr2020_manet_tpu_torch.parallel.ring import ring_rotate
 
@@ -79,6 +87,25 @@ def local_then_min(query, ref_shards, onehot_shards, valid_shards,
         outs.append(_shard_matching(query.to(d), ref, oh, valid)
                     .to(query.device))
     return torch.stack(outs).amin(dim=0)
+
+
+def trainable_local_then_min(query: torch.Tensor, ref: torch.Tensor,
+                             ref_gate: torch.Tensor,
+                             devices: Sequence[torch.device]) -> torch.Tensor:
+    """Differentiable `local_then_min` for training: query (Nq, C), ref
+    (Nk, C) and ref_gate (Nk, O) (the one-hot times its validity) on the
+    caller's device; member m of `devices` matches rows [m Nk/n, (m + 1)
+    Nk/n) through `GlobalMatchingTrainable`, and the (Nq, O) maps meet in
+    `stack(...).amin(0)` on the query's device. Nk must divide by the
+    member count (JAX's step drops the tail rows; the port raises)."""
+    n, nk = len(devices), ref.shape[0]
+    if nk % n:
+        raise ValueError(f"{nk} reference rows do not split over {n} "
+                         f"context members")
+    outs = [GlobalMatchingTrainable.apply(query.to(d), k.to(d), g.to(d))
+            .to(query.device)
+            for d, k, g in zip(devices, ref.chunk(n), ref_gate.chunk(n))]
+    return torch.stack(outs).amin(0)
 
 
 def ring_local_then_min(query, ref_shards, onehot_shards, valid_shards,

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.export.passes import move_to_device_pass
 
+from cvpr2020_manet_tpu_torch.config import check_params_only
 # registers the manet::* custom ops that exported graphs call
 from cvpr2020_manet_tpu_torch.ops import (  # noqa: F401
     global_matching_cuda, local_matching_cuda)
@@ -295,6 +296,7 @@ def export_forward(model: nn.Module, image_size: Tuple[int, int],
     device-side), 'float32' (pre-normalized), or 'yuv420' (the decoder's
     planar pair, see wrap_yuv420_image). JAX's `raw_image`, the older
     boolean spelling of uint8-vs-float32, has no counterpart."""
+    check_params_only(model.cfg, "export")
     wrap = _image_wrapper(image_format)
     fn, example_args = build_round_forward(model, image_size, num_objects,
                                            pad_to=pad_to)
@@ -310,6 +312,7 @@ def export_serving_bundle(model: nn.Module, image_size: Tuple[int, int],
 
     image_format ('uint8' default / 'float32' / 'yuv420') sets the
     `extract` entry's frame contract, as in export_forward."""
+    check_params_only(model.cfg, "export")
     wrap = _image_wrapper(image_format)
     fns = build_serving_fns(model, image_size, num_objects, pad_to=pad_to)
     if wrap is not None:

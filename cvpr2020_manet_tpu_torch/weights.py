@@ -1,14 +1,20 @@
 """Flax -> PyTorch weight bridge.
 
-Takes the JAX package's Flax `params` tree as nested dicts of numpy arrays
-(no JAX needed) and returns the port's `state_dict`:
+Takes the JAX package's Flax `params` tree, or its whole `variables`
+({"params", "batch_stats"}), as nested dicts of numpy arrays (no JAX
+needed) and returns the port's `state_dict`:
 
 - conv kernels HWIO -> OIHW;
-- GroupNorm `scale` -> `weight`;
-- Flax's auto-named submodules map by creation order: in the ASPP
-  `Conv_<i>` -> `conv.<i>` and `GroupNorm_<i>` -> `norm.<i>`; in the
-  encoder `GroupNorm_0/1/2` -> `low_level_norm` / `decoder_norm0` /
-  `decoder_norm1`; in a head's conv stack `GroupNorm_<i>` -> `norm<i>`.
+- norm `scale` -> `weight`; BatchNorm's `batch_stats` `mean` / `var` ->
+  its buffers of the same names;
+- Flax's auto-named submodules map by creation order, Flax counting each
+  class apart (`GroupNorm_<i>`, `BatchNorm_<i>`, `LayerNorm_<i>`,
+  `FrozenAffine_<i>`): in the ASPP `Conv_<i>` -> `conv.<i>` and each norm
+  -> `norm.<j>`, j its place among the ASPP's norms (with `norm="bn"`:
+  BatchNorm_0..3 -> norm.0..3, GroupNorm_0 -> norm.4, BatchNorm_4 ->
+  norm.5); in the encoder the three norms -> `low_level_norm` /
+  `decoder_norm0` / `decoder_norm1`; in a head's conv stack the i-th norm
+  -> `norm<i>`.
 
 Every Flax leaf is consumed exactly once and every model tensor is filled
 exactly once, with matching shapes, or the bridge raises.
@@ -16,47 +22,80 @@ exactly once, with matching shapes, or the bridge raises.
 
 from __future__ import annotations
 
-import re
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
-_ENCODER_NORMS = {"GroupNorm_0": "low_level_norm",
-                  "GroupNorm_1": "decoder_norm0",
-                  "GroupNorm_2": "decoder_norm1"}
+from cvpr2020_manet_tpu_torch.models.layers import NORM_MODULES
+
+_COLLECTIONS = ({"params"}, {"params", "batch_stats"})
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+           "mean": "mean", "var": "var"}
 
 
-def _torch_key(path: tuple[str, ...]) -> tuple[str, bool]:
+def _flax_names(modules) -> dict[str, int]:
+    """Flax's auto-names of `modules` in creation order (each class counted
+    apart) -> their index in the list."""
+    counts: dict[str, int] = {}
+    names = {}
+    for i, m in enumerate(modules):
+        n = counts.get(m.FLAX_NAME, 0)
+        counts[m.FLAX_NAME] = n + 1
+        names[f"{m.FLAX_NAME}_{n}"] = i
+    return names
+
+
+def _auto_names(model: nn.Module) -> dict[str, dict[str, str]]:
+    """parent module name -> {Flax auto-name: port submodule name}, for the
+    encoder's, the ASPP's and the head stacks' unnamed norms."""
+    enc = model.encoder
+    aspp = _flax_names(enc.aspp.norm)
+    out = {"aspp": {k: f"norm.{i}" for k, i in aspp.items()}}
+    out["aspp"].update({f"Conv_{i}": f"conv.{i}"
+                        for i in range(len(enc.aspp.conv))})
+    names = ("low_level_norm", "decoder_norm0", "decoder_norm1")
+    out["encoder"] = {k: names[i] for k, i in _flax_names(
+        [getattr(enc, n) for n in names]).items()}
+    # both heads' stacks hold one norm class; the deeper one names them all
+    out["stack"] = {k: f"norm{i}" for k, i in _flax_names(
+        [m for m in model.propagation_head.stack.children()
+         if isinstance(m, NORM_MODULES)]).items()}
+    return out
+
+
+def _torch_key(path: tuple[str, ...], auto: Mapping[str, Mapping[str, str]]
+               ) -> tuple[str, bool]:
     """Flax param path -> (state_dict key, leaf is a conv kernel)."""
     parts = []
     for i, seg in enumerate(path[:-1]):
         parent = path[i - 1] if i else ""
-        m = re.fullmatch(r"(Conv|GroupNorm)_(\d+)", seg)
-        if parent == "aspp" and m:
-            parts += ["conv" if m.group(1) == "Conv" else "norm", m.group(2)]
-        elif parent == "encoder" and seg in _ENCODER_NORMS:
-            parts.append(_ENCODER_NORMS[seg])
-        elif parent == "stack" and m and m.group(1) == "GroupNorm":
-            parts.append(f"norm{m.group(2)}")
-        else:
-            parts.append(seg)
+        parts.append(auto.get(parent, {}).get(seg, seg))
     leaf = path[-1]
-    if leaf not in ("kernel", "scale", "bias"):
+    if leaf not in _LEAVES:
         raise KeyError(f"unknown Flax leaf {'/'.join(path)}")
-    parts.append("bias" if leaf == "bias" else "weight")
+    parts.append(_LEAVES[leaf])
     return ".".join(parts), leaf == "kernel"
 
 
-def _leaves(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
-    if not prefix and set(tree) == {"params"}:      # a whole `variables` dict
-        tree = tree["params"]
+def _walk(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
-            yield from _leaves(v, prefix + (k,))
+            yield from _walk(v, prefix + (k,))
         else:
             yield prefix + (k,), v
+
+
+def _leaves(tree: Mapping[str, Any]):
+    """(path, leaf) of a `params` tree, or of each collection of a whole
+    `variables` dict, the collection name dropped (the collections' leaf
+    names differ)."""
+    if set(tree) in _COLLECTIONS:
+        for collection in sorted(tree):
+            yield from _walk(tree[collection])
+    else:
+        yield from _walk(tree)
 
 
 def bridge_plan(params: Mapping[str, Any], model: nn.Module):
@@ -65,9 +104,10 @@ def bridge_plan(params: Mapping[str, Any], model: nn.Module):
     shape tree (`jax.eval_shape`) can be checked without data.
     Returns [(state_dict key, flax path, is_conv_kernel)]."""
     expected = model.state_dict()
+    auto = _auto_names(model)
     plan, seen = [], {}
     for path, leaf in _leaves(params):
-        key, is_kernel = _torch_key(path)
+        key, is_kernel = _torch_key(path, auto)
         if key in seen:
             raise KeyError(f"{'/'.join(path)} and {'/'.join(seen[key])} "
                            f"both map to {key}")
@@ -89,7 +129,8 @@ def bridge_plan(params: Mapping[str, Any], model: nn.Module):
 
 def flax_to_state_dict(params: Mapping[str, Any],
                        model: nn.Module) -> dict[str, torch.Tensor]:
-    """Flax `params` (numpy leaves) -> the model's state_dict (f32, CPU)."""
+    """Flax `params`, or `variables` with `batch_stats` (numpy leaves) ->
+    the model's state_dict (f32, CPU)."""
     out = {}
     leaves = dict(_leaves(params))
     for key, path, is_kernel in bridge_plan(params, model):
@@ -101,6 +142,7 @@ def flax_to_state_dict(params: Mapping[str, Any],
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Load Flax `params` into the model in place; returns the model."""
+    """Load Flax `params` (or `variables`) into the model in place;
+    returns the model."""
     model.load_state_dict(flax_to_state_dict(params, model), strict=True)
     return model

@@ -49,9 +49,11 @@ def test_port_sources_import_nothing_forbidden():
 def test_tiny_round_in_fresh_process_loads_no_jax():
     """tests/conftest.py imports jax into this process, so the check runs
     in a subprocess: one tiny CPU session (int8 matching, uint8 frames),
-    one tiny step of each trainer, a few streamed frames, one batch of
-    propagation and the three context-parallel schedules on CPU members,
-    then sys.modules is inspected."""
+    one tiny step of each trainer and of the context-parallel trainer, a
+    few streamed frames, one batch of propagation, the three
+    context-parallel schedules on CPU members, the distributed layer and
+    a backbone load into a 'frozen' model, then sys.modules is
+    inspected."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -108,6 +110,18 @@ def test_tiny_round_in_fresh_process_loads_no_jax():
         for trainer in (Trainer(cfg, device="cpu"),
                         Stage2Trainer(cfg, device="cpu")):
             assert np.isfinite(trainer.train_step(batch)["loss"])
+        import dataclasses
+        import cvpr2020_manet_tpu_torch.parallel.distributed
+        from cvpr2020_manet_tpu_torch.engine.train_stage1 import (
+            make_cp_train_step)
+        from cvpr2020_manet_tpu_torch.utils.pretrained import (
+            load_backbone_into)
+        trainer = Trainer(cfg, device="cpu")
+        step = make_cp_train_step(trainer.model, cfg, mesh)
+        assert np.isfinite(step(trainer.state, batch)["loss"])
+        frozen = MANet(dataclasses.replace(cfg.model, norm="frozen"),
+                       device="cpu")
+        load_backbone_into(frozen, frozen.encoder.backbone.state_dict())
         print(" ".join(sorted(sys.modules)))
     """)
     root = PKG_DIR.parent

@@ -144,17 +144,23 @@ def test_trainer_clis_on_davis_and_ytvos_trees(davis_root, tmp_path,
 
 
 def test_cli_flags_that_raise(davis_root, monkeypatch):
-    """`--grain` needs a dataset; multi-process training is not ported
-    and says where it is queued."""
+    """`--grain` needs a dataset; `--distributed` flags that cannot join a
+    process group (no coordinator, no rank, or one process of several
+    by the environment) raise instead of training alone."""
     monkeypatch.setattr(ts1, "resolve_device", CPU)
     with pytest.raises(ValueError, match="--grain"):
         ts1.main(["--tiny", "--grain", "--steps", "1"])
-    for flags in (["--distributed"], ["--num_processes", "2"],
-                  ["--coordinator", "localhost:1234"], ["--process_id", "0"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts1.main(["--tiny", "--steps", "1", *flags])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts2.main(["--tiny", "--steps", "1", *flags])
+    for k in ("MANET_COORDINATOR", "MANET_NUM_PROCESSES", "MANET_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    cases = ((["--distributed"], "refusing"),
+             (["--distributed", "--num_processes", "2"], "coordinator"),
+             (["--distributed", "--num_processes", "2", "--coordinator",
+               "localhost:1234"], "MANET_PROCESS_ID"))
+    for flags, match in cases:
+        for main in (ts1.main, ts2.main):
+            with pytest.raises(RuntimeError, match=match):
+                main(["--tiny", "--steps", "1", *flags])
 
 
 def test_propagate_batch_cli_on_ytvos(tmp_path, monkeypatch, capsys):
