@@ -125,6 +125,21 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              (load_torch_file, convert_torch_resnet, load_backbone_into; 2
              steps and a 480p round), 'ln' (a step and a round), 'bn'
              (extract_features at 480p; the Evaluator refuses it);
+   quality — the train -> release -> eval entry point
+             (`train_eval_flagship.py`) at the flagship Config(): first
+             kernels 4 and 5 against their plain versions at its crops
+             (256 and 192: 64 x 64 and 48 x 48 global, 32 x 32 and 24 x
+             24 local); then `--steps1 8 --steps2 4 --sequences 1 --sets 1
+             --rounds 3 --ablate --release DIR` (batch 2, stage 2 at 2
+             rounds over 3-frame clips, 16 480p frames with 3 objects
+             entering mid-sequence): finite losses, the launches of every
+             step (B kernel-4 and 2B kernel-5 a stage-1 step, 2 B R F of
+             each a stage-2 step) and of every round (1 kernel-1 and 15
+             kernel-2 launches), none outside them; each stage's wall,
+             median step and peak memory; then `--eval_release DIR` in a
+             fresh call (its per-round J&F must equal the trained run's)
+             and `--eval_release DIR --matching_int8` (1 kernel-3 launch
+             a round);
 6. result  — one JSON line of the kernels (launches: kernels 1-2 over the
              main path's 3 rounds, kernel 3 over serve_int8's 3 rounds,
              kernels 4-5 per stage-1 step, kernel 6 over the cp phase's
@@ -618,12 +633,15 @@ def epilogue_ms(nq: int, b, lane_ops: float) -> float:
 
 
 def kernel_global_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
-                         o: int):
+                         o: int, tie_objects: int | None = None):
     """Kernel 4 at the training shape: one crop's features (Nq = Nk = h w)
     against its reference frame, bf16, O = 9 with the last object
     pixel-less; its key splits, winners, and the routed gradients. The
     bound is the larger of the tensor cores' products and the argmin
-    epilogue's floor on the CUDA cores."""
+    epilogue's floor on the CUDA cores. The ties across its key splits
+    are checked with `tie_objects` objects (default O): at a small crop
+    each of 8 live objects fills one k-block, and no object straddles a
+    split."""
     from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
         BLOCKS_PER_SM, QUERY_TILE, key_splits,
         global_matching_prepared_argmin,
@@ -693,7 +711,7 @@ def kernel_global_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
         f"a single call), bound {b_ms:.4f} ms by {b_by} ({b_what}; "
         f"tensor cores {tc_ms:.4f} ms, epilogue floor {epi_ms:.4f} ms at "
         f"{ARGMIN_LANE_OPS} lane operations per candidate)")
-    argmin_split_ties(dev, hw, c, o)
+    argmin_split_ties(dev, hw, c, tie_objects or o)
     return dict(name="global_matching_argmin", route="cuda",
                 source="cvpr2020_manet_tpu_torch/csrc/global_matching.cu",
                 replaces="cvpr2020_manet_tpu/ops/matching_pallas.py:507",
@@ -2665,6 +2683,183 @@ def dist_phase(dev) -> None:
     log(f"[dist] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------- #
+# The quality phase: the train -> release -> eval entry point
+# (train_eval_flagship.py) at the flagship Config(), as a user runs it.
+# --------------------------------------------------------------------- #
+
+QUALITY_ARGV = ["--steps1", "8", "--steps2", "4", "--sequences", "1",
+                "--sets", "1", "--rounds", "3"]
+QUALITY_KEYS = ["per_round_jf", "auc", "jf_at_60s", "p50_round_ms",
+                "entry_frames"]
+QUALITY_ABLATE_KEYS = ["ablate_per_round_jf", "ablate_auc",
+                       "memory_auc_delta"]
+
+
+def quality_cli(argv) -> dict:
+    """`train_eval_flagship.main(argv)` as `python -m
+    cvpr2020_manet_tpu_torch.train_eval_flagship` runs it, the launch
+    counters reset just before; each trainer step's and each eval round's
+    launches recorded. -> dict: its exit code, its JSON line, its verdict
+    line, each stage's record (`train`'s), the launches of each stage-1
+    step, stage-2 step and round, the run's launches in all, its wall."""
+    import contextlib
+    import io
+
+    from cvpr2020_manet_tpu_torch import train_eval_flagship as tef
+    from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+    from cvpr2020_manet_tpu_torch.engine.train_stage1 import Trainer
+    from cvpr2020_manet_tpu_torch.engine.train_stage2 import Stage2Trainer
+    from cvpr2020_manet_tpu_torch.kernels import build
+
+    run = {"stage1": [], "stage2": [], "rounds": [], "records": []}
+
+    def counted(real, key):
+        def method(self, *args, **kw):
+            out, launched = launches_delta(lambda: real(self, *args, **kw))
+            run[key].append(launched)
+            return out
+        return method
+
+    def recorded(*args, **kw):
+        rec = real_train(*args, **kw)
+        run["records"].append(rec)
+        return rec
+
+    patched = ((Trainer, "train_step", "stage1"),
+               (Stage2Trainer, "train_step", "stage2"),
+               (Evaluator, "run_round", "rounds"))
+    reals = [getattr(cls, name) for cls, name, _ in patched]
+    real_train = tef.train
+    out = io.StringIO()
+    for (cls, name, key), real in zip(patched, reals):
+        setattr(cls, name, counted(real, key))
+    tef.train = recorded
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            run["rc"] = tef.main(argv)
+    finally:
+        for (cls, name, _), real in zip(patched, reals):
+            setattr(cls, name, real)
+        tef.train = real_train
+    torch.cuda.synchronize()
+    run["wall_s"] = time.perf_counter() - t0
+    run["launches"] = dict(build.LAUNCHES)
+    lines = out.getvalue().strip().splitlines()
+    run["verdict"], run["line"] = lines[-2], json.loads(lines[-1])
+    return run
+
+
+def summed_launches(deltas) -> dict[str, int]:
+    """The sum of `launches_delta` records, every kernel's count (0 where
+    none launched), as `build.LAUNCHES` holds them."""
+    from cvpr2020_manet_tpu_torch.kernels import build
+    total = dict.fromkeys(build.LAUNCHES, 0)
+    for launched in deltas:
+        for k, v in launched.items():
+            total[k] += v
+    return total
+
+
+def check_quality_launches(name, run, global_kernel, rounds, per_round):
+    """Each recorded step and round launched its kernels as asserted, and
+    nothing launched outside them."""
+    total = summed_launches(run["stage1"] + run["stage2"] + run["rounds"])
+    require(total == run["launches"], f"quality {name}: launches outside "
+            f"the steps and rounds: {run['launches']} vs {total}")
+    require(len(run["rounds"]) == rounds, f"quality {name}: "
+            f"{len(run['rounds'])} rounds, {rounds} expected")
+    for launched in run["rounds"]:
+        require(launched == {global_kernel: 1, "local_matching": per_round},
+                f"quality {name}: a round launched {launched}")
+
+
+def quality_phase(dev) -> None:
+    """`train_eval_flagship` at the flagship Config(): 8 stage-1 steps
+    (crop 256, batch 2), 4 stage-2 steps (crop 192, 2 rounds), a release,
+    then the eval leg and its memory-ablated leg (3 rounds, 1 sequence of
+    16 480p frames, 3 objects entering mid-sequence); then the release
+    evaluated in fresh calls, in the default and the int8 mode. Kernels 4
+    and 5 against their plain versions at the two crops first."""
+    import tempfile
+
+    from cvpr2020_manet_tpu_torch.config import Config
+    t_phase = time.perf_counter()
+    cfg = Config()
+    o, c_real, c = (cfg.model.max_objects + 1, cfg.model.embedding_dim,
+                    cfg.model.embedding_dim_padded)
+    # crop 192's 2,304 reference rows hold 8 live objects in one k-block
+    # each: its split ties take 2 live objects (O = 3)
+    for crop, tie_objects in ((256, o), (192, 3)):
+        s = cfg.model.feature_stride
+        kernel_global_argmin(dev, (crop // s, crop // s), c_real, c, o,
+                             tie_objects)
+        kernel_local_argmin(dev, (crop // (2 * s), crop // (2 * s)), c_real,
+                            c, o, cfg.model.local_window)
+    torch.cuda.empty_cache()
+
+    b, rounds2, clip = 2, 2, 3          # the entry point's defaults
+    rounds, frames = 3, 16
+    with tempfile.TemporaryDirectory() as tmp:
+        release = os.path.join(tmp, "rel")
+        trained = quality_cli(QUALITY_ARGV + ["--ablate", "--release",
+                                              release])
+        line = trained["line"]
+        require(list(line) == QUALITY_KEYS + QUALITY_ABLATE_KEYS,
+                f"quality: JSON keys {list(line)}")
+        require(trained["rc"] == int(not trained["verdict"].startswith(
+            "OK")), f"quality: exit code {trained['rc']} against "
+            f"{trained['verdict']!r}")
+        for stage, per_step in (("stage1", {"global_matching_argmin": b,
+                                            "local_matching_argmin": 2 * b}),
+                                ("stage2", {
+                                    k: 2 * b * rounds2 * clip for k in (
+                                        "global_matching_argmin",
+                                        "local_matching_argmin")})):
+            i = 0 if stage == "stage1" else 1
+            rec = trained["records"][i]
+            steps = trained[stage]
+            check_steps(f"quality {stage}", rec["losses"],
+                        summed_launches(steps), per_step)
+            log(f"[quality] {stage}: {len(steps)} steps, losses "
+                f"{[round(x, 4) for x in rec['losses']]}, wall "
+                f"{rec['wall_s']:.2f} s, median step {rec['step_ms']:.1f} "
+                f"ms, peak device memory {rec['peak_gib']:.2f} GiB; "
+                f"launches a step {steps[-1]}")
+        check_quality_launches("trained", trained, "global_matching",
+                               2 * rounds, frames - 1)
+        log(f"[quality] trained: {json.dumps(line)}; {trained['verdict']}; "
+            f"wall {trained['wall_s']:.1f} s")
+
+        evaluated = {}
+        for mode, extra, kernel in (("release", [], "global_matching"),
+                                    ("release int8", ["--matching_int8"],
+                                     "global_matching_int8")):
+            run = quality_cli(QUALITY_ARGV + ["--eval_release", release]
+                              + extra)
+            require(not run["stage1"] and not run["stage2"],
+                    f"quality {mode}: it trained")
+            require(list(run["line"]) == QUALITY_KEYS,
+                    f"quality {mode}: JSON keys {list(run['line'])}")
+            check_quality_launches(mode, run, kernel, rounds, frames - 1)
+            jf = run["line"]["per_round_jf"]
+            require(all(0.0 <= x <= 1.0 for x in jf),
+                    f"quality {mode}: J&F {jf}")
+            log(f"[quality] {mode}: {json.dumps(run['line'])}; "
+                f"{run['verdict']}; wall {run['wall_s']:.1f} s")
+            evaluated[mode] = run["line"]
+        require(evaluated["release"]["per_round_jf"] == line["per_round_jf"],
+                f"quality: the release's per-round J&F "
+                f"{evaluated['release']['per_round_jf']} differs from the "
+                f"trained model's {line['per_round_jf']}")
+    log(f"[quality] the release evaluated in a fresh call gives the "
+        f"trained model's per-round J&F; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 # the port's kernel functions and the names of their template parameters
 TEMPLATE_PARAMS = {"global_matching_tf32": (),
                    "global_matching_wgmma": ("argmin", "int8"),
@@ -2859,9 +3054,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # [5] training: the flagship model; launches per stage-1 step; then
-    # data-parallel ranks, the cp step and the other norms
+    # data-parallel ranks, the cp step and the other norms; then the
+    # train -> release -> eval entry point
     launches.update(train_phase(dev))
     dist_phase(dev)
+    torch.cuda.empty_cache()
+    quality_phase(dev)
     for k in kernels:
         if "launches" not in k:            # kernel 6 counts its own ring
             k["launches"] = launches[k["name"]]

@@ -215,7 +215,7 @@ class InteractiveSession:
         for key in sorted(items):
             q = np.zeros_like(grid)
             for _, (jfs, times) in sorted(items[key].items()):
-                q[grid >= max(times)] = _compensated_mean(jfs)
+                q[grid >= max(times)] = compensated_mean(jfs)
             curves.append(q)
         mean_curve = np.mean(curves, axis=0)
         auc = float(np.trapezoid(mean_curve, grid) / max_time)
@@ -224,7 +224,7 @@ class InteractiveSession:
                 "curve": (grid, mean_curve)}
 
 
-def _compensated_mean(values: List[float]) -> float:
+def compensated_mean(values: List[float]) -> float:
     """Kahan-compensated sum in order, divided by the count."""
     total = comp = 0.0
     for v in values:

@@ -14,6 +14,8 @@ and numpy:
   and 6 raise.
 - `save_indexed_png` writes 8-bit colour type 3 with the DAVIS palette in
   PLTE and filter 0 on every row.
+- `save_rgb_png` writes an (H, W, 3) uint8 image as 8-bit colour type 2
+  (RGB), filter 0 on every row (`utils/visualize.save_image`).
 """
 
 from __future__ import annotations
@@ -61,6 +63,21 @@ def save_indexed_png(path: str, mask: np.ndarray) -> None:
         f.write(_SIGNATURE)
         f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0)))
         f.write(_chunk(b"PLTE", davis_palette().tobytes()))
+        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_chunk(b"IEND", b""))
+
+
+def save_rgb_png(path: str, image: np.ndarray) -> None:
+    """Save an (H, W, 3) uint8 image as an 8-bit RGB PNG."""
+    image = np.ascontiguousarray(np.asarray(image, np.uint8))
+    if image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {image.shape}")
+    h, w = image.shape[:2]
+    rows = np.zeros((h, 3 * w + 1), np.uint8)    # filter byte 0 per row
+    rows[:, 1:] = image.reshape(h, 3 * w)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE)
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
         f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
         f.write(_chunk(b"IEND", b""))
 

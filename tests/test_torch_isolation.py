@@ -234,6 +234,41 @@ def test_training_data_in_fresh_process_loads_no_jax(davis_root, tmp_path):
         assert not bad, bad
 
 
+def test_train_eval_entry_points_in_fresh_process_load_no_jax(tmp_path):
+    """A fresh process imports the utilities (meters, profiling,
+    visualize), the fake DAVIS writer, both train-eval entry points and the
+    rehearsal orchestrator, and runs the flagship entry point at the tiny
+    config on the CPU for one stage-1 step and one eval round; then
+    sys.modules holds nothing of JAX, pandas or PIL."""
+    code = textwrap.dedent(f"""
+        import sys
+        import cvpr2020_manet_tpu_torch.data.fake_davis
+        import cvpr2020_manet_tpu_torch.rehearse_eval_modes
+        import cvpr2020_manet_tpu_torch.train_eval_synthetic
+        import cvpr2020_manet_tpu_torch.utils.meters
+        import cvpr2020_manet_tpu_torch.utils.profiling
+        import cvpr2020_manet_tpu_torch.utils.visualize
+        from cvpr2020_manet_tpu_torch import train_eval_flagship
+        rc = train_eval_flagship.main([
+            "--tiny", "--device", "cpu", "--steps1", "1", "--steps2", "0",
+            "--frames", "4", "--objects", "2", "--sequences", "1",
+            "--sets", "1", "--rounds", "1",
+            "--release", {str(tmp_path / "rel")!r}])
+        assert rc == 1                    # one round: no later round
+        print(" ".join(sorted(sys.modules)))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG_DIR.parent,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.strip().splitlines()[-1].split()
+    for module in ("train_eval_flagship", "rehearse_eval_modes",
+                   "data.fake_davis", "utils.visualize"):
+        assert f"cvpr2020_manet_tpu_torch.{module}" in loaded
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+
+
 def test_bundle_in_fresh_process_loads_no_models(tmp_path):
     """The export CLI writes a tiny serving bundle on the CPU; a fresh
     process that imports only `utils.export` loads it and drives one
