@@ -54,6 +54,15 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              reports' metric columns equal the default run's; each run's
              wall time split into the model, the session's J and F
              scoring with the robot, and the rest;
+   reference — the port's reference-style script
+             (`reference_style_eval.py`: the upstream davisinteractive
+             loop through `cvpr2020_manet_tpu_torch.davisinteractive`) on
+             the davis tree at Config() with the CLI's seeded weights,
+             held against the default CLI run: once as written (float
+             frames), once fed the CLI's uint8 frames, where round 1's J
+             and F must equal the CLI's to 1e-3; both with the same row
+             keys, the AUC within 0.02, 1 kernel-1 and bucket - 1 kernel-2
+             launches a round, the wall split as the davis runs';
    stream  — `StreamingIVOS` at 1080p, 2 objects, int8: 3 corrections (4
              live pages), then 8 `observe` and 8 `observe_async` of uint8
              frames and 2 of YUV 4:2:0 frames; 1 int8 global- and 1 local
@@ -69,7 +78,13 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              observe, masks equal to the single-device stream's); the
              flagship at 480p with stacked memory, monolithic and in 4
              segments, single-device and with `cp_mesh`: equal masks
-             every round, 1 / 4 kernel-1 launches per matching call;
+             every round, 1 / 4 kernel-1 launches per matching call; the
+             cp matching artifact (`utils/export.export_cp_matching`) at
+             the cp stream observe's matching over 4 members: exported,
+             saved with its mesh, loaded in a fresh process, bit-equal to
+             the live `cp_match_flat` and within 1e-5 of single-device
+             kernel 1, 4 kernel-1 launches a call, another mesh size
+             refused;
    batch   — `BatchPropagator`, 4 clips x 16 frames at 480p, int8 and f32,
              rgb and yuv420 ingest, through the batch CLI's timing loops
              (`timed_batches`): B (T - 1) = 60 launches of the global
@@ -157,6 +172,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1112,15 +1128,15 @@ def davis_metric_rows(report):
             for r in read_report_csv(report)]
 
 
-def davis_phase() -> None:
+def davis_phase(tmp: str) -> dict:
     """The DAVIS evaluation CLI at the flagship config on a 480p tree of
-    DAVIS_SEQUENCES, DAVIS_ROUNDS rounds x DAVIS_SETS scribble sets:
-    default (kernels 1 and 2), --matching_int8 (kernels 3 and 2), a run
-    stopped after its first item and resumed, and a run against the port's
-    evaluation server (--host); the resumed and remote reports' metric
-    columns must equal the default run's."""
-    import tempfile
-
+    DAVIS_SEQUENCES, DAVIS_ROUNDS rounds x DAVIS_SETS scribble sets, which
+    it writes under `tmp`: default (kernels 1 and 2), --matching_int8
+    (kernels 3 and 2), a run stopped after its first item and resumed, and
+    a run against the port's evaluation server (--host); the resumed and
+    remote reports' metric columns must equal the default run's. -> what
+    the reference phase reads: the tree, the frame buckets, and the
+    default run with its report."""
     from cvpr2020_manet_tpu_torch.config import EvalConfig
     from cvpr2020_manet_tpu_torch.data.davis import DavisEvalDataset
     from cvpr2020_manet_tpu_torch.interactive.service import serve
@@ -1133,145 +1149,146 @@ def davis_phase() -> None:
 
     t_phase = time.perf_counter()
     size = f"{DAVIS_SIZE[1]}x{DAVIS_SIZE[0]}"
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "DAVIS")
-        t0 = time.perf_counter()
-        written = write_davis_tree(root, DAVIS_SIZE, DAVIS_SEQUENCES,
-                                   DAVIS_SETS)
-        n_frames = {seq: v[0].shape[0] for seq, v in written.items()}
-        n_obj = {seq: int(v[1].max()) for seq, v in written.items()}
-        # the smallest of the flagship's frame buckets that holds each
-        buckets = {seq: min(b for b in EvalConfig().frame_buckets if b >= n)
-                   for seq, n in n_frames.items()}
-        log(f"[davis] wrote a {size} DAVIS tree ({n_frames} frames, "
-            f"{n_obj} objects, {DAVIS_SETS} scribble sets) in "
-            f"{time.perf_counter() - t0:.2f} s")
+    root = os.path.join(tmp, "DAVIS")
+    t0 = time.perf_counter()
+    written = write_davis_tree(root, DAVIS_SIZE, DAVIS_SEQUENCES,
+                               DAVIS_SETS)
+    n_frames = {seq: v[0].shape[0] for seq, v in written.items()}
+    n_obj = {seq: int(v[1].max()) for seq, v in written.items()}
+    # the smallest of the flagship's frame buckets that holds each
+    buckets = {seq: min(b for b in EvalConfig().frame_buckets if b >= n)
+               for seq, n in n_frames.items()}
+    log(f"[davis] wrote a {size} DAVIS tree ({n_frames} frames, "
+        f"{n_obj} objects, {DAVIS_SETS} scribble sets) in "
+        f"{time.perf_counter() - t0:.2f} s")
 
-        # the host decoders at 480p, and what they decode
-        seq0 = next(iter(written))
-        jpg = os.path.join(root, "JPEGImages", "480p", seq0, "00000.jpg")
-        png = os.path.join(root, "Annotations", "480p", seq0, "00000.png")
-        dec = read_jpeg(jpg)                    # builds the decoder
-        src = written[seq0][0][0]
-        psnr = 10 * np.log10(255.0 ** 2 / np.mean(
-            (dec.astype(np.float64) - src) ** 2))
-        require(dec.shape == src.shape and psnr > 20,
-                f"JPEG decode: shape {dec.shape}, PSNR {psnr:.1f} dB")
-        require(np.array_equal(load_indexed_png(png), written[seq0][1][0]),
-                "PNG read-back differs from the written label map")
-        reps = 20
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            read_jpeg(jpg)
-        jpeg_ms = (time.perf_counter() - t0) / reps * 1e3
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            load_indexed_png(png)
-        png_ms = (time.perf_counter() - t0) / reps * 1e3
-        log(f"[davis] host decode per {size} frame: JPEG {jpeg_ms:.2f} ms "
-            f"(the port's baseline decoder; PSNR {psnr:.1f} dB against "
-            f"the encoded frame), PNG {png_ms:.2f} ms (zlib + numpy)")
+    # the host decoders at 480p, and what they decode
+    seq0 = next(iter(written))
+    jpg = os.path.join(root, "JPEGImages", "480p", seq0, "00000.jpg")
+    png = os.path.join(root, "Annotations", "480p", seq0, "00000.png")
+    dec = read_jpeg(jpg)                    # builds the decoder
+    src = written[seq0][0][0]
+    psnr = 10 * np.log10(255.0 ** 2 / np.mean(
+        (dec.astype(np.float64) - src) ** 2))
+    require(dec.shape == src.shape and psnr > 20,
+            f"JPEG decode: shape {dec.shape}, PSNR {psnr:.1f} dB")
+    require(np.array_equal(load_indexed_png(png), written[seq0][1][0]),
+            "PNG read-back differs from the written label map")
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        read_jpeg(jpg)
+    jpeg_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        load_indexed_png(png)
+    png_ms = (time.perf_counter() - t0) / reps * 1e3
+    log(f"[davis] host decode per {size} frame: JPEG {jpeg_ms:.2f} ms "
+        f"(the port's baseline decoder; PSNR {psnr:.1f} dB against "
+        f"the encoded frame), PNG {png_ms:.2f} ms (zlib + numpy)")
 
-        base = ["--davis_root", root, "--rounds", str(DAVIS_ROUNDS),
-                "--scribble_sets", str(DAVIS_SETS)]
-        report1 = os.path.join(tmp, "r1.csv")
-        masks1 = os.path.join(tmp, "masks1")
-        runs = {}
-        runs["default"] = davis_cli(base + ["--report", report1,
-                                            "--save_masks", masks1])
-        runs["int8"] = davis_cli(base + ["--matching_int8", "--report",
-                                         os.path.join(tmp, "r8.csv")])
-        report3 = os.path.join(tmp, "r3.csv")
-        stopped = davis_cli(base + ["--resume", "--report", report3],
-                            stop_after_first_item=True)
-        require(stopped["stopped"], "the resume run was not stopped")
-        require(len({(r["sequence"], r["scribble_idx"])
-                     for r in read_report_csv(report3)}) == 1,
-                "the stopped run's checkpoint does not hold one item")
-        runs["resumed"] = davis_cli(base + ["--resume", "--report", report3])
-        require("resume: 1 completed items found" in runs["resumed"]["stderr"],
-                "the resumed run did not report 1 completed item")
-        srv, thread = serve(DavisEvalDataset(root, scribble_sets=DAVIS_SETS),
-                            host="127.0.0.1", port=0)
-        try:
-            report4 = os.path.join(tmp, "r4.csv")
-            runs["remote"] = davis_cli(base + [
-                "--host", f"http://127.0.0.1:{srv.server_address[1]}",
-                "--report", report4])
-        finally:
-            srv.shutdown()
-            thread.join(timeout=30)
-        require(not thread.is_alive(), "the evaluation server did not stop")
+    base = ["--davis_root", root, "--rounds", str(DAVIS_ROUNDS),
+            "--scribble_sets", str(DAVIS_SETS)]
+    report1 = os.path.join(tmp, "r1.csv")
+    masks1 = os.path.join(tmp, "masks1")
+    runs = {}
+    runs["default"] = davis_cli(base + ["--report", report1,
+                                        "--save_masks", masks1])
+    runs["int8"] = davis_cli(base + ["--matching_int8", "--report",
+                                     os.path.join(tmp, "r8.csv")])
+    report3 = os.path.join(tmp, "r3.csv")
+    stopped = davis_cli(base + ["--resume", "--report", report3],
+                        stop_after_first_item=True)
+    require(stopped["stopped"], "the resume run was not stopped")
+    require(len({(r["sequence"], r["scribble_idx"])
+                 for r in read_report_csv(report3)}) == 1,
+            "the stopped run's checkpoint does not hold one item")
+    runs["resumed"] = davis_cli(base + ["--resume", "--report", report3])
+    require("resume: 1 completed items found" in runs["resumed"]["stderr"],
+            "the resumed run did not report 1 completed item")
+    srv, thread = serve(DavisEvalDataset(root, scribble_sets=DAVIS_SETS),
+                        host="127.0.0.1", port=0)
+    try:
+        report4 = os.path.join(tmp, "r4.csv")
+        runs["remote"] = davis_cli(base + [
+            "--host", f"http://127.0.0.1:{srv.server_address[1]}",
+            "--report", report4])
+    finally:
+        srv.shutdown()
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "the evaluation server did not stop")
 
-        for name, run in runs.items():
-            line = run["line"]
-            score = sum(run["score_s"])
-            model = sum(run["round_s"]) + sum(run["start_s"])
-            log(f"[davis] {name}: wall {run['wall_s']:.2f} s, of it "
-                f"{model:.2f} s the model's rounds and start_sequence, "
-                f"{score:.2f} s scoring and robot over "
-                f"{len(run['score_s'])} submissions (p50 "
-                f"{statistics.median(run['score_s']) * 1e3:.1f} ms), "
-                f"{run['wall_s'] - model - score:.2f} s the rest (model "
-                f"build, frame decode, PNG and CSV writes, HTTP); peak "
-                f"device memory {run['peak_gib']:.2f} GiB, start_sequence "
-                + ", ".join(f"{s * 1e3:.1f}" for s in run["start_s"])
-                + f" ms; {line['rounds_run']} rounds, p50 round latency "
-                f"{line['p50_round_latency_s']} s, by frame bucket "
-                f"{line['p50_by_frame_bucket']}; AUC {line['auc']}, "
-                f"J&F@60s {line['jf_at_60s']} (random weights: parity only)")
-            require(line["rounds_run"] == len(run["rounds"]),
-                    f"{name}: rounds_run {line['rounds_run']}")
-            require(set(line["p50_by_frame_bucket"]) == {"16", "32"},
-                    f"{name}: frame buckets {line['p50_by_frame_bucket']}")
-            require(0.0 <= line["auc"] <= 1.0 and np.isfinite(line["auc"]),
-                    f"{name}: AUC {line['auc']}")
-        log(f"[davis] resumed: the stopped run took {stopped['wall_s']:.2f} s "
-            f"over {len(stopped['rounds'])} rounds")
-        check_davis_launches("default", runs["default"], "global_matching",
-                             buckets)
-        check_davis_launches("int8", runs["int8"], "global_matching_int8",
-                             buckets)
-        check_davis_launches("resumed", runs["resumed"], "global_matching",
-                             buckets)
-        check_davis_launches("remote", runs["remote"], "global_matching",
-                             buckets)
+    for name, run in runs.items():
+        line = run["line"]
+        score = sum(run["score_s"])
+        model = sum(run["round_s"]) + sum(run["start_s"])
+        log(f"[davis] {name}: wall {run['wall_s']:.2f} s, of it "
+            f"{model:.2f} s the model's rounds and start_sequence, "
+            f"{score:.2f} s scoring and robot over "
+            f"{len(run['score_s'])} submissions (p50 "
+            f"{statistics.median(run['score_s']) * 1e3:.1f} ms), "
+            f"{run['wall_s'] - model - score:.2f} s the rest (model "
+            f"build, frame decode, PNG and CSV writes, HTTP); peak "
+            f"device memory {run['peak_gib']:.2f} GiB, start_sequence "
+            + ", ".join(f"{s * 1e3:.1f}" for s in run["start_s"])
+            + f" ms; {line['rounds_run']} rounds, p50 round latency "
+            f"{line['p50_round_latency_s']} s, by frame bucket "
+            f"{line['p50_by_frame_bucket']}; AUC {line['auc']}, "
+            f"J&F@60s {line['jf_at_60s']} (random weights: parity only)")
+        require(line["rounds_run"] == len(run["rounds"]),
+                f"{name}: rounds_run {line['rounds_run']}")
+        require(set(line["p50_by_frame_bucket"]) == {"16", "32"},
+                f"{name}: frame buckets {line['p50_by_frame_bucket']}")
+        require(0.0 <= line["auc"] <= 1.0 and np.isfinite(line["auc"]),
+                f"{name}: AUC {line['auc']}")
+    log(f"[davis] resumed: the stopped run took {stopped['wall_s']:.2f} s "
+        f"over {len(stopped['rounds'])} rounds")
+    check_davis_launches("default", runs["default"], "global_matching",
+                         buckets)
+    check_davis_launches("int8", runs["int8"], "global_matching_int8",
+                         buckets)
+    check_davis_launches("resumed", runs["resumed"], "global_matching",
+                         buckets)
+    check_davis_launches("remote", runs["remote"], "global_matching",
+                         buckets)
 
-        # the default run: final-round PNGs, report rows per item
-        run1 = runs["default"]
-        per_item = _items(run1["rounds"])
-        require(len(run1["last"]) == len(written) * DAVIS_SETS,
-                f"{len(run1['last'])} items ran")
-        for (seq, k), m in run1["last"].items():
-            require(m.shape == written[seq][1].shape and m.dtype == np.int32
-                    and m.min() >= 0 and m.max() <= n_obj[seq],
-                    f"{seq} set {k}: masks {m.shape} {m.dtype}")
-            saved = np.stack([load_indexed_png(os.path.join(
-                masks1, f"scribble{k + 1}", seq, f"{t:05d}.png"))
-                for t in range(n_frames[seq])])
-            require(np.array_equal(saved, m),
-                    f"{seq} set {k}: saved PNGs differ from the last round")
-        rows = read_report_csv(report1)
-        for (seq, k), n in per_item.items():
-            got = sum(r["sequence"] == seq and r["scribble_idx"] == k
-                      for r in rows)
-            require(got == n * n_obj[seq] * n_frames[seq],
-                    f"{seq} set {k}: {got} report rows for {n} rounds")
-        require(all(0.0 <= r["jaccard"] <= 1.0 and 0.0 <= r["contour"] <= 1.0
-                    for r in rows), "J and F in [0, 1]")
-        want = davis_metric_rows(report1)
-        for name, report in (("resumed", report3), ("remote", report4)):
-            got = davis_metric_rows(report)
-            same = sum(a == b for a, b in zip(got, want))
-            log(f"[davis] {name} report: {same} of {len(want)} metric rows "
-                f"equal the default run's ({len(got)} rows)")
-            require(got == want,
-                    f"{name} report's metric columns differ from run 1's")
-        require(len(davis_metric_rows(os.path.join(tmp, "r8.csv")))
-                == sum(n * n_obj[s] * n_frames[s] for (s, _), n in
-                       _items(runs["int8"]["rounds"]).items()),
-                "int8 report rows")
+    # the default run: final-round PNGs, report rows per item
+    run1 = runs["default"]
+    per_item = _items(run1["rounds"])
+    require(len(run1["last"]) == len(written) * DAVIS_SETS,
+            f"{len(run1['last'])} items ran")
+    for (seq, k), m in run1["last"].items():
+        require(m.shape == written[seq][1].shape and m.dtype == np.int32
+                and m.min() >= 0 and m.max() <= n_obj[seq],
+                f"{seq} set {k}: masks {m.shape} {m.dtype}")
+        saved = np.stack([load_indexed_png(os.path.join(
+            masks1, f"scribble{k + 1}", seq, f"{t:05d}.png"))
+            for t in range(n_frames[seq])])
+        require(np.array_equal(saved, m),
+                f"{seq} set {k}: saved PNGs differ from the last round")
+    rows = read_report_csv(report1)
+    for (seq, k), n in per_item.items():
+        got = sum(r["sequence"] == seq and r["scribble_idx"] == k
+                  for r in rows)
+        require(got == n * n_obj[seq] * n_frames[seq],
+                f"{seq} set {k}: {got} report rows for {n} rounds")
+    require(all(0.0 <= r["jaccard"] <= 1.0 and 0.0 <= r["contour"] <= 1.0
+                for r in rows), "J and F in [0, 1]")
+    want = davis_metric_rows(report1)
+    for name, report in (("resumed", report3), ("remote", report4)):
+        got = davis_metric_rows(report)
+        same = sum(a == b for a, b in zip(got, want))
+        log(f"[davis] {name} report: {same} of {len(want)} metric rows "
+            f"equal the default run's ({len(got)} rows)")
+        require(got == want,
+                f"{name} report's metric columns differ from run 1's")
+    require(len(davis_metric_rows(os.path.join(tmp, "r8.csv")))
+            == sum(n * n_obj[s] * n_frames[s] for (s, _), n in
+                   _items(runs["int8"]["rounds"]).items()),
+            "int8 report rows")
     log(f"[davis] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"root": root, "buckets": buckets, "report": report1,
+            "run": runs["default"]}
 
 
 def _items(rounds):
@@ -1279,6 +1296,172 @@ def _items(rounds):
     for seq, k, *_ in rounds:
         count[(seq, k)] = count.get((seq, k), 0) + 1
     return count
+
+
+# --------------------------------------------------------------------- #
+# The reference phase: the port's reference-style script (the upstream
+# davisinteractive loop through the port's shim) on the davis phase's tree,
+# held against that phase's default CLI run.
+# --------------------------------------------------------------------- #
+
+# Round 1 takes the tree's own scribbles in both loops. The script asks its
+# dataset for float frames (`images`, normalized on the host) where the
+# CLI's session loop takes uint8 ones (`images_uint8`, normalized on the
+# card): they differ at the padding and, the card dividing by a multiply
+# with the reciprocal, in the last bit, which moves argmax near-ties of
+# the random bf16 model. The uint8 leg hands the script the CLI's frames:
+# with identical inputs its round-1 rows must agree to this.
+TOL_REFERENCE_ROUND1 = 1e-3
+# Later rounds take the robot's scribbles on each loop's own masks, so
+# differences may compound: the AUCs must agree to this, in both legs.
+TOL_REFERENCE_AUC = 0.02
+
+
+def reference_leg(davis: dict, frames: str) -> float:
+    """`reference_style_eval.main` as a user runs it on the davis phase's
+    tree (DAVIS_ROUNDS rounds; the DAVIS_SETS scribble sets the CLI read
+    with --scribble_sets), its dataset's `images` giving `frames` ("float":
+    as written; "uint8": the CLI's frames), the launch counters reset just
+    before: 1 kernel-1 and bucket - 1 kernel-2 launches a round, the same
+    row keys as the CLI's default run, the AUC within TOL_REFERENCE_AUC of
+    its. Logs the wall split into the model (start_sequence per item, then
+    rounds), scoring with the robot and the rest, p50 rounds by frame
+    bucket, round 1's largest J / F difference and every round's mean J&F
+    gap. -> round 1's largest difference."""
+    import contextlib
+    import io
+
+    from cvpr2020_manet_tpu_torch import reference_style_eval
+    from cvpr2020_manet_tpu_torch.data.davis import DavisEvalDataset
+    from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+    from cvpr2020_manet_tpu_torch.interactive.session import (
+        REPORT_COLUMNS, InteractiveSession, read_report_csv)
+    from cvpr2020_manet_tpu_torch.kernels import build
+
+    name = f"reference ({frames} frames)"
+    report = os.path.join(os.path.dirname(davis["report"]),
+                          f"reference_{frames}.csv")
+    run = {"rounds": [], "round_s": [], "start_s": [], "score_s": []}
+    real = (Evaluator.start_sequence, Evaluator.run_round,
+            InteractiveSession.submit_masks,
+            DavisEvalDataset.num_scribble_sets, DavisEvalDataset.images)
+
+    def start_sequence(ev, *args):
+        t = time.perf_counter()
+        st = real[0](ev, *args)
+        torch.cuda.synchronize()
+        run["start_s"].append(time.perf_counter() - t)
+        return st
+
+    def run_round(ev, state, scribbles, *args):
+        masks = real[1](ev, state, scribbles, *args)
+        t_bucket, _, dt = ev.round_records[-1]
+        run["rounds"].append((scribbles["sequence"], None,
+                              state.round_idx - 1, t_bucket))
+        run["round_s"].append(dt)
+        return masks
+
+    def submit_masks(session, masks):
+        t = time.perf_counter()
+        real[2](session, masks)
+        run["score_s"].append(time.perf_counter() - t)
+
+    out = io.StringIO()
+    Evaluator.start_sequence = start_sequence
+    Evaluator.run_round = run_round
+    InteractiveSession.submit_masks = submit_masks
+    # the script's session reads DAVIS's 3 scribble sets a sequence (it has
+    # no --scribble_sets, nor has JAX's); the tree holds DAVIS_SETS
+    DavisEvalDataset.num_scribble_sets = lambda self, seq: DAVIS_SETS
+    if frames == "uint8":
+        DavisEvalDataset.images = DavisEvalDataset.images_uint8
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            reference_style_eval.main([
+                "--davis_root", davis["root"], "--rounds", str(DAVIS_ROUNDS),
+                "--report", report])
+    finally:
+        (Evaluator.start_sequence, Evaluator.run_round,
+         InteractiveSession.submit_masks,
+         DavisEvalDataset.num_scribble_sets,
+         DavisEvalDataset.images) = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run["launches"] = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    cli = davis["run"]
+
+    require(set(line) == {"auc", "jf_at_60s", "rows"},
+            f"{name}: JSON keys {sorted(line)}")
+    check_davis_launches(name, run, "global_matching", davis["buckets"])
+    rows, want = read_report_csv(report), read_report_csv(davis["report"])
+    require(line["rows"] == len(rows), f"{name}: {line['rows']} rows in "
+            f"the JSON line, {len(rows)} in the report")
+    key_cols = REPORT_COLUMNS[:5]
+    require([[r[c] for c in key_cols] for r in rows]
+            == [[r[c] for c in key_cols] for r in want],
+            f"{name}: the report's row keys differ from the CLI's")
+    require(all(0.0 <= r["jaccard"] <= 1.0 and 0.0 <= r["contour"] <= 1.0
+                for r in rows), f"{name}: J and F in [0, 1]")
+    first = [(a, b) for a, b in zip(rows, want) if a["interaction"] == 0]
+    err1 = max(max(abs(a["jaccard"] - b["jaccard"]),
+                   abs(a["contour"] - b["contour"])) for a, b in first)
+    gaps = []
+    for i in range(DAVIS_ROUNDS):
+        jf = [np.mean([0.5 * (r["jaccard"] + r["contour"]) for r in rs
+                       if r["interaction"] == i]) for rs in (rows, want)]
+        gaps.append(jf[0] - jf[1])
+    auc_gap = line["auc"] - cli["line"]["auc"]
+    by_bucket = {}
+    for (*_, tb), dt in zip(run["rounds"], run["round_s"]):
+        by_bucket.setdefault(str(tb), []).append(dt)
+    p50 = {b: round(statistics.median(v), 4) for b, v in by_bucket.items()}
+    model = sum(run["start_s"]) + sum(run["round_s"])
+    score = sum(run["score_s"])
+    log(f"[reference] {name}: wall {wall:.2f} s, of it {model:.2f} s the "
+        f"model (start_sequence {sum(run['start_s']):.2f} s over "
+        f"{len(run['start_s'])} items: "
+        + ", ".join(f"{s * 1e3:.1f}" for s in run["start_s"])
+        + f" ms; rounds {sum(run['round_s']):.2f} s), {score:.2f} s scoring "
+        f"and robot over {len(run['score_s'])} submissions (p50 "
+        f"{statistics.median(run['score_s']) * 1e3:.1f} ms), "
+        f"{wall - model - score:.2f} s the rest; peak device memory "
+        f"{peak:.2f} GiB; p50 round s by frame bucket {p50} (the CLI's "
+        f"{cli['line']['p50_by_frame_bucket']}, start_sequence "
+        f"{sum(cli['start_s']):.2f} s over {len(cli['start_s'])} "
+        f"sequences)")
+    log(f"[reference] {name}: JSON line {json.dumps(line)}; against the "
+        f"CLI's default run: round 1 max |dJ|, |dF| over {len(first)} rows "
+        f"{err1:.3g}; per-round mean J&F gap "
+        + ", ".join(f"{g:+.5f}" for g in gaps)
+        + f"; AUC {line['auc']} against {cli['line']['auc']} ({auc_gap:+.4f},"
+        f" tol {TOL_REFERENCE_AUC}); {len(rows)} rows, keys equal")
+    require(abs(auc_gap) <= TOL_REFERENCE_AUC,
+            f"{name}: AUC {line['auc']} against the CLI's "
+            f"{cli['line']['auc']}")
+    return err1
+
+
+def reference_phase(davis: dict) -> None:
+    """The reference-style script on the davis phase's tree at Config()
+    with the CLI's seeded weights, held against the phase's default CLI
+    run: as written (float frames), then on the CLI's uint8 frames, where
+    round 1's J and F must agree to TOL_REFERENCE_ROUND1 on every row."""
+    t_phase = time.perf_counter()
+    reference_leg(davis, "float")
+    torch.cuda.empty_cache()
+    err1 = reference_leg(davis, "uint8")
+    require(err1 <= TOL_REFERENCE_ROUND1,
+            f"reference on the CLI's frames: round 1 J/F differ from the "
+            f"CLI's by {err1} (tol {TOL_REFERENCE_ROUND1})")
+    log(f"[reference] on the CLI's frames round 1 agrees to {err1:.3g} "
+        f"(tol {TOL_REFERENCE_ROUND1}); phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def stream_phase(dev, model_i8, model_f32, image_size=(1080, 1920),
@@ -1655,6 +1838,132 @@ def cp_eval(dev, model, mesh, image_size=(480, 854), n_frames=16, rounds=3,
         f"{rounds} rounds (non-background shares {labelled})")
 
 
+CP_ARTIFACT_MEMBERS = 4
+
+
+def cp_artifact_inputs(dev):
+    """The cp stream observe's matching at 1080p, made from a seed: 130,560
+    f32 queries against 4 filled memory pages (522,240 rows), 100 real
+    channels of 128, 3 live objects in an O=4 bucket. -> (q, k, onehot)
+    on `dev`."""
+    g = torch.Generator().manual_seed(7)
+    nq = 272 * 480
+    q, k, labels = global_inputs(g, nq, 4 * nq, 100, 128, 3)
+    onehot = torch.nn.functional.one_hot(labels, 4).float()
+    return q.to(dev), k.to(dev), onehot.to(dev)
+
+
+def cp_artifact_child(path: str, out_path: str, device: str) -> None:
+    """Run in a fresh process (`python -c`): load the cp artifact at `path`
+    onto CP_ARTIFACT_MEMBERS members of `device` with only `utils.export`
+    and the mesh of the port imported, call it once to warm up, once with
+    the launch counters reset, then time it; save the output to
+    `out_path` and print one JSON line."""
+    from cvpr2020_manet_tpu_torch.kernels import build
+    from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
+    from cvpr2020_manet_tpu_torch.utils import export
+    dev = torch.device(device)
+    t = time.perf_counter()
+    art = export.load_artifact(path, mesh=create_mesh(
+        1, CP_ARTIFACT_MEMBERS, [dev] * CP_ARTIFACT_MEMBERS))
+    load_s = time.perf_counter() - t
+    args = cp_artifact_inputs(dev)
+    art(*args)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = art(*args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    ms = time_ms(lambda: art(*args), reps=5, warmup=0)
+    torch.save(out.cpu(), out_path)
+    print(json.dumps({
+        "load_s": load_s, "launches": launches, "p50_ms": ms,
+        "port_modules": sorted(m for m in sys.modules
+                               if m.startswith("cvpr2020_manet_tpu_torch"))}))
+
+
+def cp_artifact(dev) -> None:
+    """The context-parallel matching artifact (`utils/export.py`) at the
+    cp stream observe's shape over CP_ARTIFACT_MEMBERS members of the card:
+    exported, saved with its mesh and loaded in a fresh process
+    (`cp_artifact_child`); its output bit-equal to the live `cp_match_flat`
+    on the same inputs and within TOL_EXPORT of single-device kernel 1, one
+    kernel-1 launch a member a call, a mesh of another size refused."""
+    from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
+        global_matching_prepared, prepare_ref)
+    from cvpr2020_manet_tpu_torch.parallel.cp_matching import cp_match_flat
+    from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
+    from cvpr2020_manet_tpu_torch.utils import export as ex
+    n = CP_ARTIFACT_MEMBERS
+    members = [dev] * n
+    mesh = create_mesh(1, n, members)
+    args = cp_artifact_inputs(dev)
+    t = time.perf_counter()
+    ep = ex.export_cp_matching(mesh, *args)
+    export_s = time.perf_counter() - t
+    targets = [str(node.target) for node in ep.graph.nodes
+               if node.op == "call_function"]
+    require(targets.count("manet.global_matching.default") == n,
+            f"the cp graph holds {targets.count('manet.global_matching.default')}"
+            f" kernel-1 nodes, expected {n}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cp.ivosx")
+        t = time.perf_counter()
+        manifest = ex.save_artifact(ep, path, mesh=mesh)
+        save_s = time.perf_counter() - t
+        require(manifest["mesh"] == {"data": 1, "context": n},
+                f"manifest mesh {manifest['mesh']}")
+        mb = os.path.getsize(path) / 2**20
+        out_path = os.path.join(tmp, "cp_out.pt")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys; from chip_smoke import "
+             "cp_artifact_child; cp_artifact_child(*sys.argv[1:])", path,
+             out_path, str(dev)], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0,
+                f"cp artifact process: {proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        child_s = time.perf_counter() - t
+        got = torch.load(out_path)
+        try:
+            ex.load_artifact(path, mesh=create_mesh(1, n // 2,
+                                                    members[:n // 2]))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        require(refused is not None and "exported for a 1 x 4" in refused,
+                f"a {n // 2}-member mesh was not refused: {refused}")
+    live, launches = launches_delta(lambda: cp_match_flat(*args, mesh))
+    torch.cuda.synchronize()
+    require(launches == {"global_matching": n},
+            f"the live cp call launched {launches}")
+    require(child["launches"] == {"global_matching": n},
+            f"the cp artifact launched {child['launches']}, expected "
+            f"{n} kernel-1 launches")
+    require(torch.equal(got, live.cpu()),
+            "the cp artifact's output differs from the live cp_match_flat")
+    single = global_matching_prepared(args[0], prepare_ref(args[1], args[2]))
+    err = (live - single).abs().max().item()
+    require(err <= TOL_EXPORT, f"cp artifact vs single-device kernel 1: {err}")
+    live_ms = time_ms(lambda: cp_match_flat(*args, mesh), reps=5, warmup=1)
+    log(f"[cp] artifact: cp_match_flat over {n} members of the card, "
+        f"{args[0].shape[0]} f32 queries against {args[1].shape[0]} rows: "
+        f"exported in {export_s:.2f} s ({len(targets)} graph operations, "
+        f"{n} kernel-1 nodes), saved in {save_s:.2f} s, {mb:.2f} MB; a "
+        f"fresh process ({child_s:.1f} s, of it load {child['load_s']:.2f} "
+        f"s) launched {child['launches']} a call; p50 {child['p50_ms']:.2f}"
+        f" ms a call against the live call's {live_ms:.2f} ms; output "
+        f"bit-equal to the live call, max|d| against single-device kernel 1 "
+        f"{err:.3g} (tol {TOL_EXPORT}); a {n // 2}-member mesh refused "
+        f"('{refused}'); port modules in the process: "
+        f"{', '.join(child['port_modules'])}")
+    if torch.cuda.device_count() < 2:
+        log("[cp] artifact over distinct cards: not verified, this machine "
+            "has one card (tests/test_torch_export_cuda.py::"
+            "test_cp_artifact_on_distinct_cards runs it on two)")
+
+
 def cp_phase(dev, model) -> dict:
     """Context-parallel serving on a ring of 4 members on the card, each
     part with the launch counters reset just before it. -> kernel 6's
@@ -1667,6 +1976,8 @@ def cp_phase(dev, model) -> dict:
     cp_stream(dev, model, mesh)
     torch.cuda.empty_cache()
     cp_eval(dev, model, mesh)
+    torch.cuda.empty_cache()
+    cp_artifact(dev)
     log(f"[cp] phase took {time.perf_counter() - t0:.1f} s")
     return entry
 
@@ -3039,7 +3350,10 @@ def main() -> int:
     launches["global_matching_int8"] = main_path(
         dev, model_i8, "serve_int8", "global_matching_int8",
         uint8=True)["global_matching_int8"]
-    davis_phase()
+    with tempfile.TemporaryDirectory() as davis_tmp:
+        davis = davis_phase(davis_tmp)
+        torch.cuda.empty_cache()
+        reference_phase(davis)
     torch.cuda.empty_cache()
     stream_phase(dev, model_i8, model)
     torch.cuda.empty_cache()

@@ -38,6 +38,16 @@ run a bundle. An artifact runs on the device it was exported on;
 `torch.export.passes.move_to_device_pass` (the counterpart of JAX's
 cross-lowering: a build host without a card writes an artifact that the
 card serves).
+
+`export_cp_matching` exports the context-parallel matching graph,
+`parallel/cp_matching.cp_match_flat` over a `Mesh` (the allgather
+schedule, as JAX's sharded artifact): one `manet::global_matching` node
+per context member on its shard of the reference rows, then a min. Where
+members are distinct devices the graph holds the copies to and from
+them; where they share one device (the CPU, one card) it is a split on
+that device. `save_artifact(..., mesh=)` records the mesh's shape and its
+member devices, and `load_artifact(..., mesh=)` places the program on a
+mesh of the same shape, member for member, and refuses another shape.
 """
 
 from __future__ import annotations
@@ -321,6 +331,29 @@ def export_serving_bundle(model: nn.Module, image_size: Tuple[int, int],
             for name, (fn, args) in fns.items()}
 
 
+def export_cp_matching(mesh, query: torch.Tensor, ref: torch.Tensor,
+                       ref_onehot: torch.Tensor, *,
+                       matching_backend: str = "auto"):
+    """Export the context-parallel matching graph: `cp_match_flat(query,
+    ref, ref_onehot, mesh)` (query (Nq, C), ref (Nk, C), ref_onehot
+    (Nk, O), validity folded into the onehot; Nk divides by the context
+    size) at these tensors' shapes, dtypes and device ->
+    torch.export.ExportedProgram of (Nq, O) f32 normalized distances.
+    Save it with `save_artifact(..., mesh=mesh)`. The int8 backend has no
+    context-parallel fold and is refused, as by the engines."""
+    from cvpr2020_manet_tpu_torch.parallel.cp_matching import (
+        check_cp_engine, cp_match_flat)
+    check_cp_engine(mesh, query.device, matching_backend, "export")
+
+    def fn(q, k, onehot):
+        return cp_match_flat(q, k, onehot, mesh)
+
+    with torch.no_grad():
+        ep = torch.export.export(_Entry(fn), (query, ref, ref_onehot))
+    ep.example_inputs = None
+    return ep
+
+
 # --------------------------------------------------------------------- #
 # save / load
 # --------------------------------------------------------------------- #
@@ -382,11 +415,24 @@ def _write(path: str, magic: bytes, manifest: Dict[str, Any],
     return manifest
 
 
+def _mesh_manifest(mesh) -> Dict[str, Any]:
+    """The reserved manifest keys of a mesh artifact: its (data, context)
+    shape and its member devices, row by row."""
+    return {"mesh": dict(mesh.shape),
+            "mesh_devices": [[str(_full_device(d)) for d in row]
+                             for row in mesh.devices]}
+
+
 def save_artifact(exported, path: str,
-                  extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """Write the .ivosx artifact; returns the manifest dict."""
+                  extra: Optional[Dict[str, Any]] = None,
+                  mesh=None) -> Dict[str, Any]:
+    """Write the .ivosx artifact; returns the manifest dict. `mesh`: the
+    `Mesh` a context-parallel program was exported over (`export_cp_
+    matching`), recorded as `mesh` {data, context} and `mesh_devices`."""
     manifest = {"format": FORMAT, "torch_version": torch.__version__,
                 **_signature(exported)}
+    if mesh is not None:
+        manifest.update(_mesh_manifest(mesh))
     _merge_extra(manifest, extra)
     return _write(path, _MAGIC, manifest, [_serialize(exported)])
 
@@ -412,18 +458,61 @@ def _deserialize(blob: bytes, what: str):
         raise ValueError(f"{what}: {e}") from e
 
 
+def _full_device(device) -> torch.device:
+    """`device` with the current card's index where a cuda device has
+    none."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def _placed(ep, device):
     """The program on `device` (None: where it was exported), moved with
     move_to_device_pass where that differs. -> (program, device)."""
     here = _user_inputs(ep)[0].device
     if device is None:
         return ep, here
-    there = torch.device(device)
-    if there.type == "cuda" and there.index is None:
-        there = torch.device("cuda", torch.cuda.current_device())
+    there = _full_device(device)
     if there != here:
         ep = move_to_device_pass(ep, there)
     return ep, there
+
+
+def _check_mesh(manifest, mesh, what: str) -> None:
+    """A mesh artifact loads onto a mesh of its (data, context) shape, the
+    counterpart of JAX's `nr_devices` check."""
+    if "mesh_devices" not in manifest:
+        raise ValueError(f"{what}: not a mesh artifact; load it without "
+                         f"mesh=")
+    want = manifest["mesh"]
+    if dict(mesh.shape) != want:
+        raise ValueError(
+            f"{what}: exported for a {want['data']} x {want['context']} "
+            f"(data x context) mesh of {want['data'] * want['context']} "
+            f"members; the loading mesh is {mesh.shape['data']} x "
+            f"{mesh.shape['context']} ({mesh.devices.size} members)")
+
+
+def _mesh_placed(manifest, ep, mesh, what: str):
+    """A mesh artifact on a mesh of its shape: each exported member device
+    maps to the loading mesh's member at the same position, the inputs'
+    device with them. Members that share a device in the artifact must
+    share one in `mesh` too: the program's copies between them were not
+    traced. -> (program, the inputs' device)."""
+    mapping: Dict[str, str] = {}
+    for src, dst in zip((d for row in manifest["mesh_devices"] for d in row),
+                        mesh.devices.flat):
+        dst = str(_full_device(dst))
+        if mapping.setdefault(src, dst) != dst:
+            raise ValueError(
+                f"{what}: members on {src} in the artifact lie on "
+                f"{mapping[src]} and {dst} in the loading mesh; members "
+                f"that share a device must share one there too")
+    here = str(_user_inputs(ep)[0].device)
+    if any(src != dst for src, dst in mapping.items()):
+        ep = move_to_device_pass(ep, mapping)
+    return ep, torch.device(mapping.get(here, here))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -450,20 +539,31 @@ class LoadedArtifact:
             return self.module(*args)
 
 
-def _loaded(manifest, ep, device) -> LoadedArtifact:
-    ep, device = _placed(ep, device)
+def _loaded(manifest, ep, device, mesh=None,
+            what: str = "") -> LoadedArtifact:
+    if mesh is None:
+        ep, device = _placed(ep, device)
+    else:
+        ep, device = _mesh_placed(manifest, ep, mesh, what)
     return LoadedArtifact(manifest=manifest, exported=ep, device=device,
                           module=ep.module())
 
 
-def load_artifact(path: str, device=None) -> LoadedArtifact:
+def load_artifact(path: str, device=None, mesh=None) -> LoadedArtifact:
     """Load an .ivosx artifact, on `device` (default: the device it was
-    exported on)."""
+    exported on). A mesh artifact (`save_artifact(..., mesh=)`) takes the
+    loading `mesh` in place of `device` (default: its members as
+    exported; with `device`, every member moves there): the same (data,
+    context) shape, else ValueError."""
     with open(path, "rb") as f:
         manifest = _read_header(f, path, _MAGIC, FORMAT)
         blob = f.read()
+    if mesh is not None:
+        if device is not None:
+            raise ValueError(f"{path}: pass device= or mesh=, not both")
+        _check_mesh(manifest, mesh, path)
     ep = _deserialize(blob, f"{path}: corrupt export blob")
-    return _loaded(manifest, ep, device)
+    return _loaded(manifest, ep, device, mesh, path)
 
 
 # --------------------------------------------------------------------- #

@@ -153,3 +153,82 @@ def test_cpu_bundle_moved_to_card(cuda, tmp_path):
     for g, w in zip(on_card["extract"](image.to(cuda)),
                     on_cpu["extract"](image)):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=TOL_CARD_VS_CPU)
+
+
+def _cp_inputs(device, nq=3000, nk=2048, c=100, o=4, seed=0):
+    rng = np.random.default_rng(seed)
+    k = 0.3 * rng.normal(size=(nk, c))
+    q = k[rng.integers(0, nk, nq)] + 0.05 * rng.normal(size=(nq, c))
+    oh = np.eye(o)[rng.integers(0, o, nk)]
+    oh[rng.random(nk) < 0.3] = 0.0
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in (q, k, oh)]
+
+
+def _cp_roundtrip(path, mesh, args, members):
+    """Export cp_match_flat over `mesh`, save, load onto a mesh of the same
+    members: bit-equal to the live call, one kernel-1 launch a member."""
+    from cvpr2020_manet_tpu_torch.parallel.cp_matching import cp_match_flat
+    from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
+    ep = ex.export_cp_matching(mesh, *args)
+    manifest = ex.save_artifact(ep, path, mesh=mesh)
+    assert manifest["mesh"] == {"data": 1, "context": len(members)}
+    loaded = ex.load_artifact(path, mesh=create_mesh(1, len(members),
+                                                     members))
+    build.reset_launches()
+    got = loaded(*args)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+        "global_matching": len(members)}
+    assert torch.equal(got, cp_match_flat(*args, mesh))
+    return loaded
+
+
+def test_cp_artifact_on_one_card(cuda, tmp_path):
+    """Four members on one card: the split on one device (4 kernel-1
+    nodes, no copies), bit-equal to the live call after a round trip."""
+    from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
+    members = [torch.device("cuda", torch.cuda.current_device())] * 4
+    loaded = _cp_roundtrip(str(tmp_path / "cp.ivosx"),
+                           create_mesh(1, 4, members), _cp_inputs(cuda),
+                           members)
+    targets = [str(n.target) for n in loaded.exported.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("manet.global_matching.default") == 4
+    assert "aten._to_copy.default" not in targets
+
+
+def test_cp_artifact_from_cpu_moved_to_card(cuda, tmp_path):
+    """Exported over 4 CPU members, loaded onto 4 members of the card: the
+    members map to the card, the kernels run, and the result agrees with
+    the CPU artifact to the kernel's f32 tolerance."""
+    from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
+    args = _cp_inputs("cpu", nq=500, nk=512)
+    path = str(tmp_path / "cp_cpu.ivosx")
+    ex.save_artifact(ex.export_cp_matching(
+        create_mesh(1, 4, ["cpu"] * 4), *args), path,
+        mesh=create_mesh(1, 4, ["cpu"] * 4))
+    want = ex.load_artifact(path)(*args)
+    on_card = ex.load_artifact(path, mesh=create_mesh(1, 4, [cuda] * 4))
+    build.reset_launches()
+    got = on_card(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["global_matching"] == 4
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def test_cp_artifact_on_distinct_cards(cuda, tmp_path):
+    """Members on distinct cards: the graph holds the copies to and from
+    them, and a round trip is bit-equal to the live call."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards: members on distinct cards")
+    from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
+    members = [torch.device("cuda", i) for i in range(n)]
+    loaded = _cp_roundtrip(str(tmp_path / "cp_n.ivosx"),
+                           create_mesh(1, n, members),
+                           _cp_inputs(members[0], nk=512 * n), members)
+    copies = [n_ for n_ in loaded.exported.graph.nodes
+              if n_.op == "call_function" and "device" in n_.kwargs]
+    assert {str(n_.kwargs["device"]) for n_ in copies} >= {
+        str(d) for d in members[1:]}

@@ -23,7 +23,7 @@ from cvpr2020_manet_tpu_torch.models import MANet
 from cvpr2020_manet_tpu_torch.parallel.mesh import create_mesh
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "PIL",
-             "cvpr2020_manet_tpu")
+             "cvpr2020_manet_tpu", "davisinteractive")
 PKG_DIR = pathlib.Path(cvpr2020_manet_tpu_torch.__file__).parent
 
 
@@ -264,6 +264,57 @@ def test_train_eval_entry_points_in_fresh_process_load_no_jax(tmp_path):
     loaded = out.stdout.strip().splitlines()[-1].split()
     for module in ("train_eval_flagship", "rehearse_eval_modes",
                    "data.fake_davis", "utils.visualize"):
+        assert f"cvpr2020_manet_tpu_torch.{module}" in loaded
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_davisinteractive_shim_in_fresh_process_loads_no_jax(davis_root,
+                                                             tmp_path):
+    """A fresh process imports every module of the port's davisinteractive
+    shim, reads the DAVIS tree through its `Davis` (frames through the
+    port's JPEG decoder), scores and draws with it, and runs the
+    reference-style script on its synthetic task (the device resolved to
+    the CPU); then sys.modules holds nothing of JAX, pandas, PIL or the
+    top-level `davisinteractive`."""
+    code = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        import torch
+        import cvpr2020_manet_tpu_torch.davisinteractive.evaluation.service
+        import cvpr2020_manet_tpu_torch.davisinteractive.logging
+        import cvpr2020_manet_tpu_torch.davisinteractive.storage
+        import cvpr2020_manet_tpu_torch.davisinteractive.utils
+        from cvpr2020_manet_tpu_torch.davisinteractive.dataset import Davis
+        from cvpr2020_manet_tpu_torch.davisinteractive.metrics import (
+            batched_f_measure)
+        from cvpr2020_manet_tpu_torch.davisinteractive.robot import (
+            InteractiveScribblesRobot)
+        from cvpr2020_manet_tpu_torch.davisinteractive.utils.visualization \
+            import draw_scribble
+        from cvpr2020_manet_tpu_torch import reference_style_eval
+        from cvpr2020_manet_tpu_torch.engine import eval_davis
+        davis = Davis({str(davis_root)!r})
+        images = davis.load_images("seq_a")
+        gt = davis.load_annotations("seq_a")
+        assert images.shape == (4, 64, 96, 3)
+        assert batched_f_measure(gt, gt).tolist() == [1.0] * 4
+        pay = InteractiveScribblesRobot().interact("seq_a", 0 * gt, gt)
+        assert draw_scribble(images[0], davis.load_scribble("seq_a", 1), 0,
+                             output_size=(32, 48)).shape == (32, 48, 3)
+        eval_davis.resolve_device = lambda device=None: torch.device("cpu")
+        reference_style_eval.main(["--synthetic", "--rounds", "1",
+                                   "--report", {str(tmp_path / "r.csv")!r}])
+        print(" ".join(sorted(sys.modules)))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG_DIR.parent,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.strip().splitlines()[-1].split()
+    for module in ("reference_style_eval", "davisinteractive.dataset",
+                   "davisinteractive.session", "davisinteractive.storage",
+                   "davisinteractive.utils.visualization"):
         assert f"cvpr2020_manet_tpu_torch.{module}" in loaded
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
