@@ -106,6 +106,16 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              both); the fused round launches 1 + 1 and equals the live
              round; a tiny bundle exported on the CPU, moved to the card
              (`move_to_device_pass`), launches kernels 1 and 2;
+   tools   — the port's measuring entry points through their main(argv)
+             at the JAX scripts' defaults, flagship Config():
+             bench_matching_kernel (kernel 1
+             bf16, --int8 kernel 3, --local kernel 2), bench_streaming,
+             bench_train (stage 1 and stage 2, each also --pipelined),
+             profile_stages (and --int8), profile_encode, run_artifact;
+             each JSON line's figure finite and positive on the card, the
+             kernels of its path launched, each matching-kernel run's
+             kernel at least iters x reps times, the artifact's masks
+             bitwise equal to the live chain's;
 5. train   — the flagship model through `Trainer.train_step` (stage 1,
              TrainConfig() defaults: crop 416, batch 8) for 4 steps and
              `Stage2Trainer.train_step` (crop 416, batch 2, 3 simulated
@@ -2369,6 +2379,86 @@ def export_phase(dev, model, model_i8) -> None:
     log(f"[export] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------- #
+# The tools phase: the port's measuring entry points, each through its
+# main(argv) at the JAX scripts' defaults, the flagship Config().
+# --------------------------------------------------------------------- #
+
+# (module, argv, the kernels its run must launch), all at the JAX scripts'
+# defaults: about 80 s together on the card.
+TOOL_RUNS = (
+    ("bench_matching_kernel", [], ("global_matching",)),
+    ("bench_matching_kernel", ["--int8"], ("global_matching_int8",)),
+    ("bench_matching_kernel", ["--local"], ("local_matching",)),
+    ("bench_streaming", [], ("global_matching", "local_matching")),
+    ("bench_train", ["--stage", "1"],
+     ("global_matching_argmin", "local_matching_argmin")),
+    ("bench_train", ["--stage", "1", "--pipelined"],
+     ("global_matching_argmin", "local_matching_argmin")),
+    ("bench_train", ["--stage", "2"],
+     ("global_matching_argmin", "local_matching_argmin")),
+    ("bench_train", ["--stage", "2", "--pipelined"],
+     ("global_matching_argmin", "local_matching_argmin")),
+    ("profile_stages", [], ("global_matching", "local_matching")),
+    ("profile_stages", ["--int8"],
+     ("global_matching", "global_matching_int8", "local_matching")),
+    ("profile_encode", [], ()),
+    ("run_artifact", [], ("global_matching", "local_matching")),
+)
+
+
+def tools_phase(kind: str) -> None:
+    """Each entry point of TOOL_RUNS in this process, with PyTorch's
+    default TF32 flags (as from the command line): its lines logged, its
+    JSON line's figure finite and positive and its device the card; the
+    kernels it names launched in its run, and each `bench_matching_kernel`
+    run's kernel at least iters x reps times, so that its timed window ran
+    the hand-written kernel; `run_artifact`'s bundle masks bitwise equal
+    to the live chain's."""
+    import contextlib
+    import importlib
+    import io
+    t_phase = time.perf_counter()
+    flags = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False      # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, argv, kernels in TOOL_RUNS:
+            mod = importlib.import_module(f"cvpr2020_manet_tpu_torch.{name}")
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc, launches = launches_delta(lambda: mod.main(argv))
+            wall = time.perf_counter() - t0
+            lines = out.getvalue().strip().splitlines()
+            what = " ".join([name, *argv])
+            for line in lines:
+                log(f"[tools] {line}")
+            rec = json.loads(lines[-1])
+            figure = rec["warm_round_s" if name == "run_artifact"
+                         else "value"]
+            require(rc == 0, f"{what} exited {rc}")
+            require(np.isfinite(figure) and figure > 0,
+                    f"{what}: figure {figure}")
+            require(rec["device"] == kind, f"{what} ran on {rec['device']}")
+            for k in kernels:
+                require(launches.get(k, 0) > 0, f"{what} launched {launches}")
+            if name == "bench_matching_kernel":
+                want = rec["iters"] * rec["reps"]
+                require(launches.get(rec["kernel"], 0) >= want,
+                        f"{what}: {launches} launches, {want} timed calls")
+            if name == "run_artifact":
+                require(rec["mask_parity_bitwise"] is True,
+                        f"{what}: bundle masks differ from the live chain")
+            log(f"[tools] {what}: {wall:.1f} s, launches {launches}")
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+    log(f"[tools] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def run_trainer(name: str, trainer, cfg, steps: int,
                 per_step: dict[str, int]) -> dict[str, int]:
     """`steps` optimizer steps on synthetic batches (made beforehand); the
@@ -3366,6 +3456,7 @@ def main() -> int:
     export_phase(dev, model, model_i8)
     del model, model_i8
     torch.cuda.empty_cache()
+    tools_phase(kind)
 
     # [5] training: the flagship model; launches per stage-1 step; then
     # data-parallel ranks, the cp step and the other norms; then the

@@ -19,6 +19,22 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
+def tool_device(cpu: bool) -> tuple[torch.device, str]:
+    """The device of a measuring entry point and the name its figures
+    carry: the CPU with `--cpu` (the kernels' plain versions), else the
+    card, as `resolve_device` gives it (raises without CUDA)."""
+    if cpu:
+        return torch.device("cpu"), "cpu"
+    dev = resolve_device(None)
+    return dev, torch.cuda.get_device_name(dev)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on `device` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

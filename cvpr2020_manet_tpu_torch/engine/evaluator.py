@@ -380,7 +380,8 @@ class Evaluator:
             pos = end
         return spans
 
-    def _masks_impl(self, probs, *, hw, pack):
+    @staticmethod
+    def _masks_impl(probs, *, hw, pack):
         """(T, h, w, O) -> (T, H, W * pack / 8) bit-packed argmax labels."""
         lab = resize_bilinear(probs, hw).argmax(dim=-1).to(torch.uint8)
         return pack_labels(lab, pack)

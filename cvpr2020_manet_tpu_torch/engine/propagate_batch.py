@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from cvpr2020_manet_tpu_torch.config import Config, check_params_only
-from cvpr2020_manet_tpu_torch.device import resolve_device
+from cvpr2020_manet_tpu_torch.device import resolve_device, synchronize
 from cvpr2020_manet_tpu_torch.engine.evaluator import (
     _FETCH_POOL, bucket_mask_bits, object_bucket_for, pack_labels,
     unpack_labels)
@@ -283,11 +283,6 @@ def _load_adapter_batches(ds, batch: int, frames: int, image_hw,
                np.asarray(no, np.int32))
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def timed_batches(prop: BatchPropagator, batches: list, threads: int = 1):
     """Wall times of `batches` [(frames_u8 (B, T, H, W, 3), first_masks,
     num_objects)], each put in the upload format before the clock: under
@@ -305,12 +300,12 @@ def timed_batches(prop: BatchPropagator, batches: list, threads: int = 1):
     uploads = [prop.host_frames(fr) for fr, _, _ in batches]
     serial, labels = [], []
     for up, (fr, fm, no) in zip(uploads, batches):
-        _sync(prop.device)
+        synchronize(prop.device)
         t0 = time.perf_counter()
         fetches, bits = prop.dispatch(prop.upload(up), fm, no, fr.shape[:2])
         labels.append(prop.drain(fetches, bits))
         serial.append(time.perf_counter() - t0)
-    _sync(prop.device)
+    synchronize(prop.device)
     t0 = time.perf_counter()
     ex = prop.upload(uploads[0], threads=threads)
     for i, (fr, fm, no) in enumerate(batches):
@@ -398,7 +393,7 @@ def main(argv=None):
 
     # the device path alone: inputs uploaded and encoded beforehand
     ex = prop.upload(prop.host_frames(first[0]))
-    _sync(device)
+    synchronize(device)
     dev_times = []
     for _ in range(2):
         t0 = time.perf_counter()

@@ -205,12 +205,15 @@ def make_loss_fn(model: MANet, cfg: Config, gmap_fn=None):
 
 
 def step_with(loss_fn):
-    """-> train_step(state, batch, *args): one forward,
+    """-> train_step(state, batch, *args, sync=True): one forward,
     `loss_fn(batch, state.step, *args)`, one backward, the gradients'
     all-reduce in a data-parallel run, and one optimizer update; returns
-    the metrics as floats (in a data-parallel run their mean over the
-    ranks, the same on every rank)."""
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *args):
+    the metrics (in a data-parallel run their mean over the ranks, the same
+    on every rank, reduced on the device) as floats, or with `sync=False`
+    as 0-d tensors on the device, so that the step does not wait for the
+    card to read them (the JAX trainers' `sync=False`)."""
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *args,
+                   sync: bool = True):
         loss, metrics = loss_fn(batch, state.step, *args)
         loss.backward()
         state.allreduce_gradients()
@@ -218,6 +221,8 @@ def step_with(loss_fn):
         values = [v.detach().float().reshape(1) for v in metrics.values()]
         if state.group is not None:
             distributed.all_reduce_mean_(values, state.group)
+        if not sync:
+            return {k: v.reshape(()) for k, v in zip(metrics, values)}
         return {k: float(v) for k, v in zip(metrics, values)}
 
     return train_step
@@ -286,10 +291,14 @@ class Trainer:
         self.state = TrainState.create(self.model, cfg.train)
         self._step = make_train_step(self.model, cfg)
 
-    def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
+    def train_step(self, batch: Dict[str, np.ndarray], sync: bool = True
+                   ) -> Dict[str, float | torch.Tensor]:
         """One optimizer step on a batch of numpy arrays (or of tensors
-        already on the device, e.g. from `engine/prefetch.py`)."""
-        return self._step(self.state, to_device(batch, self.device))
+        already on the device, e.g. from `engine/prefetch.py`). The metrics
+        are floats, or with `sync=False` 0-d device tensors (no wait for
+        the card: the loop stays asynchronous until they are read)."""
+        return self._step(self.state, to_device(batch, self.device),
+                          sync=sync)
 
 
 def synthetic_batch(cfg: Config, rng: np.random.Generator,

@@ -260,9 +260,12 @@ class Stage2Trainer:
         self._gen = torch.Generator().manual_seed(cfg.train.seed + 1)
         self._step = make_train_step(self.model, cfg)
 
-    def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
+    def train_step(self, batch: Dict[str, np.ndarray], sync: bool = True
+                   ) -> Dict[str, float | torch.Tensor]:
         """One optimizer step on a batch of numpy arrays (or of tensors
-        already on the device): this rank's share of the global batch."""
+        already on the device): this rank's share of the global batch.
+        `sync=False` keeps the metrics on the device (see
+        `train_stage1.Trainer.train_step`)."""
         b = batch["images"].shape[0]
         rank, world = 0, 1
         if self.state.group is not None:
@@ -271,7 +274,7 @@ class Stage2Trainer:
         seeds = torch.randint(1 << 62, (b * world,),
                               generator=self._gen).tolist()
         return self._step(self.state, to_device(batch, self.device),
-                          seeds[rank * b:(rank + 1) * b])
+                          seeds[rank * b:(rank + 1) * b], sync=sync)
 
 
 def main(argv=None):

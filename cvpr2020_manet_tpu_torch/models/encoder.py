@@ -93,9 +93,14 @@ class Encoder(nn.Module):
                                    bias=True, dtype=dtype)
 
     def forward(self, x: torch.Tensor):
-        cfg = self.cfg
         low, trunk = self.backbone(x)
-        y = self.aspp(trunk)
+        return self.decode(self.aspp(trunk), low)
+
+    def decode(self, y: torch.Tensor, low: torch.Tensor):
+        """The decoder and the embedding head: the ASPP output y at the
+        output stride, fused with the stride-4 low-level feature ->
+        (feature, embedding)."""
+        cfg = self.cfg
         y = resize_bilinear_axes(y, tuple(low.shape[2:]), 2, 3)
         ll = F.relu(self.low_level_norm(self.low_level_proj(low)))
         y = torch.cat([y, ll], dim=1)

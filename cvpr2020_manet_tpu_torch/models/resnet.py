@@ -86,13 +86,23 @@ class ResNetBackbone(nn.Module):
             self.block_names.append(names)
         self.out_channels = in_ch
 
-    def forward(self, x: torch.Tensor):
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W) -> (B, width, H/4, W/4): 7x7/2 conv, norm, relu,
+        3x3/2 max-pool."""
         x = F.relu(self.stem_norm(self.stem_conv(x.to(self.dtype))))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        return F.max_pool2d(x, 3, stride=2, padding=1)
+
+    def stage(self, index: int, x: torch.Tensor) -> torch.Tensor:
+        """The bottleneck blocks of stage `index` (0-3)."""
+        for name in self.block_names[index]:
+            x = getattr(self, name)(x)
+        return x
+
+    def forward(self, x: torch.Tensor):
+        x = self.stem(x)
         low_level = None
-        for stage, names in enumerate(self.block_names):
-            for name in names:
-                x = getattr(self, name)(x)
+        for stage in range(len(self.block_names)):
+            x = self.stage(stage, x)
             if stage == 0:
                 low_level = x
         return low_level, x

@@ -8,6 +8,10 @@
 - `annotate(name)`: a named span (`torch.profiler.record_function`)
   visible in the trace.
 - `LatencyHistogram`: per-round latency percentiles (a copy of JAX's).
+- `elapsed_ms(fn, n, device)`, `slope_ms(fn, iters, reps, device)`: the
+  device time of back-to-back calls, and its marginal time a call with
+  the fixed host costs cancelled (the measuring entry points'
+  `bench_matching_kernel.py`, `profile_stages.py`, `profile_encode.py`).
 
 `profile_round.py` and `profile_train.py` keep their own trace code,
 which also sums device time by kernel class.
@@ -17,7 +21,8 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, List
+import time
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
@@ -61,3 +66,39 @@ class LatencyHistogram:
             "mean": float(a.mean()),
             "max": float(a.max()),
         }
+
+
+def elapsed_ms(fn: Callable[[], object], n: int, device: torch.device
+               ) -> float:
+    """Milliseconds of `n` back-to-back calls of `fn`, up to the end of the
+    work they queue: CUDA events around them on the card (the host queues
+    the calls ahead of it), the host clock on the CPU."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def slope_ms(fn: Callable[[], object], iters: int, reps: int,
+             device: torch.device) -> tuple[float, float]:
+    """Two-point slope timing, the JAX package's profilers' method: the best
+    of `reps` runs of `iters` and of `2 iters` calls; their difference over
+    `iters` is the marginal time a call, in which the fixed costs of a run
+    (the first launch's latency, the final wait) cancel. -> (ms a call,
+    fixed ms of a run). Warm `fn` up first: its first call may build or
+    load a kernel."""
+    best_lo = best_hi = float("inf")
+    for _ in range(reps):
+        best_lo = min(best_lo, elapsed_ms(fn, iters, device))
+        best_hi = min(best_hi, elapsed_ms(fn, 2 * iters, device))
+    ms = max((best_hi - best_lo) / iters, 1e-9)
+    return ms, max(best_lo - iters * ms, 0.0)
