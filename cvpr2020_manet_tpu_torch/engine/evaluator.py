@@ -31,6 +31,15 @@ padded with the ImageNet mean byte and normalized on the device.
 Everything runs under `torch.inference_mode()` on the evaluator's device
 (`cuda` unless the caller passes another).
 
+Phase spans (`utils/profiling.annotate`; recorded only while a profiler
+runs on the calling thread) cover each call end to end:
+`manet.start_sequence` = `manet.start.pad` (host padding) +
+`manet.start.encode` (upload, encoder, initial state); `manet.round` =
+`manet.round.rasterize` (scribbles to a padded raster) +
+`manet.round.dispatch` (all of `dispatch_round`) + `manet.round.wait` (the
+masks' download) + `manet.round.unpack` (unpack, mask-stride repeat, crop,
+int32 cast); a segmented round alternates the last two per span.
+
 The helpers the serving engines share with the evaluator live here too:
 the mask bit-packing, the object, mask-bit and live-page buckets, and the
 download pool.
@@ -57,6 +66,7 @@ from cvpr2020_manet_tpu_torch.models.manet import NEG_INF, MANet
 from cvpr2020_manet_tpu_torch.parallel.cp_matching import (
     check_cp_engine, cp_match_flat)
 from cvpr2020_manet_tpu_torch.utils.ingest import preprocess_frames
+from cvpr2020_manet_tpu_torch.utils.profiling import annotate
 
 # One process-wide pool for mask downloads (threads start on first use):
 # the serving engines hand each packed mask's device-to-host copy to it,
@@ -412,8 +422,18 @@ class Evaluator:
         that is normalized on the device. Padding is the mean pixel either
         way: 0.0 for floats, the mean byte for uint8 (a zero byte would be
         black, about -2 sigma, and bleed into the edge features)."""
+        with annotate("manet.start_sequence"):
+            t_actual = images.shape[0]
+            t_pad = self.frame_bucket(t_actual)
+            with annotate("manet.start.pad"):
+                images = self._pad_frames(images, t_pad)
+            with annotate("manet.start.encode"):
+                return self._encode(images, t_actual, num_objects)
+
+    def _pad_frames(self, images: np.ndarray, t_pad: int) -> np.ndarray:
+        """(T, H, W, 3) -> (t_pad, H_pad, W_pad, 3) on the host, padded
+        with the mean pixel."""
         t_actual = images.shape[0]
-        t_pad = self.frame_bucket(t_actual)
         dt = np.uint8 if images.dtype == np.uint8 else np.float32
         h0, w0 = images.shape[1:3]
         images = pad_image_to(images.astype(dt, copy=False),
@@ -426,6 +446,13 @@ class Evaluator:
             images = np.concatenate(
                 [images, np.full((t_pad - t_actual, *images.shape[1:]), fill,
                                  dt)])
+        return images
+
+    def _encode(self, images: np.ndarray, t_actual: int,
+                num_objects: int | None) -> SequenceState:
+        """The padded frames' features, uploaded and encoded in 8-frame
+        chunks, and the sequence's initial state."""
+        t_pad = images.shape[0]
         chunk = min(8, t_pad)
         if t_pad % chunk:
             raise ValueError(f"frame bucket {t_pad} is not a multiple of the "
@@ -434,7 +461,7 @@ class Evaluator:
         for i in range(0, t_pad, chunk):
             x = torch.from_numpy(np.ascontiguousarray(images[i:i + chunk]))
             x = x.to(self.device)
-            if dt == np.uint8:
+            if images.dtype == np.uint8:
                 x = preprocess_frames(x)
             f, e = self.model.extract_features(x)
             feats.append(f)
@@ -474,19 +501,21 @@ class Evaluator:
     def run_round(self, state: SequenceState, scribbles_json: Dict[str, Any],
                   image_hw: tuple[int, int], num_objects: int) -> np.ndarray:
         """One interaction round. Returns (T_actual, H, W) int32 labels."""
-        cfg = self.cfg
+        pad_to = self.cfg.eval.pad_to
         t0 = time.perf_counter()
-        af = annotated_frames(scribbles_json)
-        annot = af[0] if af else 0
-        one_frame = {"sequence": scribbles_json["sequence"],
-                     "scribbles": [scribbles_json["scribbles"][annot]]}
-        raster = scribbles2mask(one_frame, image_hw)[0]
-        raster = np.pad(raster,
-                        [(0, (-image_hw[0]) % cfg.eval.pad_to),
-                         (0, (-image_hw[1]) % cfg.eval.pad_to)],
-                        constant_values=-1)
-        handle = self.dispatch_round(state, raster, annot, num_objects)
-        masks = self.collect_round(handle, image_hw)
+        with annotate("manet.round"):
+            with annotate("manet.round.rasterize"):
+                af = annotated_frames(scribbles_json)
+                annot = af[0] if af else 0
+                one_frame = {"sequence": scribbles_json["sequence"],
+                             "scribbles": [scribbles_json["scribbles"][annot]]}
+                raster = scribbles2mask(one_frame, image_hw)[0]
+                raster = np.pad(raster,
+                                [(0, (-image_hw[0]) % pad_to),
+                                 (0, (-image_hw[1]) % pad_to)],
+                                constant_values=-1)
+            handle = self.dispatch_round(state, raster, annot, num_objects)
+            masks = self.collect_round(handle, image_hw)
         dt = time.perf_counter() - t0
         self.round_latencies.append(dt)
         self.round_records.append(
@@ -502,57 +531,61 @@ class Evaluator:
         runs in segments, and each segment's packed masks go to the
         download pool while the next segment computes; the monolithic
         round packs all frames at its end, for `collect_round`."""
-        cfg = self.cfg
-        dev = self.device
-        o_bucket = state.prev_masks.shape[-1]
-        if num_objects + 1 > o_bucket:
-            raise ValueError(f"{num_objects} objects do not fit the object "
-                             f"bucket {o_bucket} (background included)")
-        obj_valid = torch.zeros((o_bucket,), dtype=torch.float32, device=dev)
-        obj_valid[:num_objects + 1] = 1.0
-        t_bucket = state.feat.shape[0]
-        frame_valid = torch.arange(t_bucket, device=dev) < state.num_frames
-        ms = cfg.eval.mask_stride
-        mask_hw = (raster.shape[0] // ms, raster.shape[1] // ms)
-        pk = aligned_mask_bits(num_objects + 1, mask_hw[1])
-        raster_t = torch.as_tensor(np.asarray(raster, np.int8), device=dev)
-        stack = None
-        if self.memory_mode == "stacked":
-            cap = cfg.eval.max_interactions
-            slot = min(state.round_idx, cap - 1)   # past capacity: the last
-            h, w = state.feat.shape[1:3]
-            stack = (slot, live_page_bucket(slot + 1, cap) * h * w)
-        annot = int(annot)
-        head = self._start_impl(state, raster_t, annot, obj_valid, stack)
-        # the round's copies of the per-frame state; the annotated frame
-        # keeps the interaction-branch result
-        probs = state.prev_masks.clone()
-        probs[annot] = head["int_probs"]
-        gmap = head["gmap_mem"].clone()
-        carry = head["int_probs"]
-        handle = RoundHandle(pk=pk, annot=annot, nf=state.num_frames,
-                             t_bucket=t_bucket)
-        if cfg.eval.round_segments > 1:
-            handle.annot_mask = _FETCH_POOL.submit(
-                _download, self._masks_impl(head["int_probs"][None],
-                                            hw=mask_hw, pack=pk))
-            handle.seg_masks = []
-            for s0, c in self._segment_spans(t_bucket):
-                carry, frames = self._sweep_impl(
-                    state, head, annot, carry, probs, gmap, frame_valid,
-                    start=s0, count=c)
-                mk = self._masks_impl(probs[frames], hw=mask_hw, pack=pk)
-                handle.seg_masks.append(
-                    (s0, c, _FETCH_POOL.submit(_download, mk)))
-        else:
-            if t_bucket > 1:
-                self._sweep_impl(state, head, annot, carry, probs, gmap,
-                                 frame_valid, start=0, count=t_bucket - 1)
-            handle.masks = self._masks_impl(probs, hw=mask_hw, pack=pk)
-        state.prev_masks, state.gmap_mem = probs, gmap
-        state.int_mem = head["int_mem"]
-        state.round_idx += 1
-        return handle
+        with annotate("manet.round.dispatch"):
+            cfg = self.cfg
+            dev = self.device
+            o_bucket = state.prev_masks.shape[-1]
+            if num_objects + 1 > o_bucket:
+                raise ValueError(f"{num_objects} objects do not fit the "
+                                 f"object bucket {o_bucket} (background "
+                                 "included)")
+            obj_valid = torch.zeros((o_bucket,), dtype=torch.float32,
+                                    device=dev)
+            obj_valid[:num_objects + 1] = 1.0
+            t_bucket = state.feat.shape[0]
+            frame_valid = torch.arange(t_bucket, device=dev) < state.num_frames
+            ms = cfg.eval.mask_stride
+            mask_hw = (raster.shape[0] // ms, raster.shape[1] // ms)
+            pk = aligned_mask_bits(num_objects + 1, mask_hw[1])
+            raster_t = torch.as_tensor(np.asarray(raster, np.int8), device=dev)
+            stack = None
+            if self.memory_mode == "stacked":
+                cap = cfg.eval.max_interactions
+                # past capacity: the last slot
+                slot = min(state.round_idx, cap - 1)
+                h, w = state.feat.shape[1:3]
+                stack = (slot, live_page_bucket(slot + 1, cap) * h * w)
+            annot = int(annot)
+            head = self._start_impl(state, raster_t, annot, obj_valid, stack)
+            # the round's copies of the per-frame state; the annotated frame
+            # keeps the interaction-branch result
+            probs = state.prev_masks.clone()
+            probs[annot] = head["int_probs"]
+            gmap = head["gmap_mem"].clone()
+            carry = head["int_probs"]
+            handle = RoundHandle(pk=pk, annot=annot, nf=state.num_frames,
+                                 t_bucket=t_bucket)
+            if cfg.eval.round_segments > 1:
+                handle.annot_mask = _FETCH_POOL.submit(
+                    _download, self._masks_impl(head["int_probs"][None],
+                                                hw=mask_hw, pack=pk))
+                handle.seg_masks = []
+                for s0, c in self._segment_spans(t_bucket):
+                    carry, frames = self._sweep_impl(
+                        state, head, annot, carry, probs, gmap, frame_valid,
+                        start=s0, count=c)
+                    mk = self._masks_impl(probs[frames], hw=mask_hw, pack=pk)
+                    handle.seg_masks.append(
+                        (s0, c, _FETCH_POOL.submit(_download, mk)))
+            else:
+                if t_bucket > 1:
+                    self._sweep_impl(state, head, annot, carry, probs, gmap,
+                                     frame_valid, start=0, count=t_bucket - 1)
+                handle.masks = self._masks_impl(probs, hw=mask_hw, pack=pk)
+            state.prev_masks, state.gmap_mem = probs, gmap
+            state.int_mem = head["int_mem"]
+            state.round_idx += 1
+            return handle
 
     def collect_round(self, handle: RoundHandle,
                       image_hw: tuple[int, int]) -> np.ndarray:
@@ -560,21 +593,37 @@ class Evaluator:
         round's (T_actual, H, W) labels."""
         pk = handle.pk
         if handle.masks is not None:
-            masks = unpack_labels(_download(handle.masks[:handle.nf]), pk)
-        else:
-            lab_annot = unpack_labels(handle.annot_mask.result(), pk)[0]
+            with annotate("manet.round.wait"):
+                packed = _download(handle.masks[:handle.nf])
+            with annotate("manet.round.unpack"):
+                return self._full_size(unpack_labels(packed, pk), image_hw)
+        # segmented: each span's masks unpack while later spans download
+        with annotate("manet.round.wait"):
+            packed = handle.annot_mask.result()
+        with annotate("manet.round.unpack"):
+            lab_annot = unpack_labels(packed, pk)[0]
             nf = handle.nf
             masks = np.zeros((nf, *lab_annot.shape), np.uint8)
             masks[handle.annot] = lab_annot
-            fwd_len = handle.t_bucket - 1 - handle.annot
-            for s0, c, fut in handle.seg_masks:
-                lab = unpack_labels(fut.result(), pk)
+        fwd_len = handle.t_bucket - 1 - handle.annot
+        for s0, c, fut in handle.seg_masks:
+            with annotate("manet.round.wait"):
+                packed = fut.result()
+            with annotate("manet.round.unpack"):
+                lab = unpack_labels(packed, pk)
                 for j in range(c):
                     i = s0 + j
                     f = (handle.annot + 1 + i if i < fwd_len
                          else handle.annot - 1 - (i - fwd_len))
                     if f < nf:
                         masks[f] = lab[j]
+        with annotate("manet.round.unpack"):
+            return self._full_size(masks, image_hw)
+
+    def _full_size(self, masks: np.ndarray,
+                   image_hw: tuple[int, int]) -> np.ndarray:
+        """(T_actual, H_pad / mask_stride, W_pad / mask_stride) uint8 labels
+        -> (T_actual, H, W) int32."""
         ms = self.cfg.eval.mask_stride
         if ms > 1:
             masks = np.repeat(np.repeat(masks, ms, axis=1), ms, axis=2)

@@ -23,7 +23,11 @@ packed mask's download to the shared download pool, so that frame i's
 mask crosses the link while frame i+1 computes; `observe` waits for it.
 Masks are bit-packed at the live label count. A frame takes raw uint8 RGB
 (normalized on the device), host-normalized floats, or a planar YUV 4:2:0
-(y, uv) pair, sent as one flat buffer.
+(y, uv) pair, sent as one flat buffer. Phase spans
+(`utils/profiling.annotate`): `manet.observe` = `manet.observe.ingest`
+(host padding and the upload) + `manet.observe.dispatch` (the device work
+enqueued, the state updated) + `manet.observe.wait` (the mask's download
+and unpack on the pool, which no span there can see).
 
 The memory is f32, as in JAX. With the default matching backend a bf16
 query meets it in f32 (kernel 1's f32 variant); with
@@ -56,6 +60,7 @@ from cvpr2020_manet_tpu_torch.parallel.cp_matching import (
     check_cp_engine, cp_match_flat)
 from cvpr2020_manet_tpu_torch.utils.ingest import (
     preprocess_frames, preprocess_yuv420)
+from cvpr2020_manet_tpu_torch.utils.profiling import annotate
 
 
 class StreamingIVOS:
@@ -219,6 +224,18 @@ class StreamingIVOS:
         if self.state is None:
             raise RuntimeError("call reset(num_objects) first")
         st = self.state
+        with annotate("manet.observe.ingest"):
+            image = self._upload(image)
+        with annotate("manet.observe.dispatch"):
+            f_t, e_t, probs, mask = self._observe(
+                image, self.live_pages() * self.hh * self.ww, self._bits)
+            st["prev_emb"], st["prev_probs"] = e_t, probs
+            st["cur_feat"], st["cur_emb"], st["cur_probs"] = f_t, e_t, probs
+            return _FETCH_POOL.submit(self._unpack, mask, self._bits)
+
+    def _upload(self, image) -> torch.Tensor:
+        """A frame padded on the host and copied to the device in one
+        buffer."""
         pad_to = self.cfg.eval.pad_to
         if isinstance(image, tuple):
             y, uv = image
@@ -231,16 +248,14 @@ class StreamingIVOS:
             if image.dtype != np.uint8:
                 image = image.astype(np.float32)
             image = np.ascontiguousarray(pad_image_to(image, pad_to))
-        image = torch.from_numpy(image).to(self.device)
-        f_t, e_t, probs, mask = self._observe(
-            image, self.live_pages() * self.hh * self.ww, self._bits)
-        st["prev_emb"], st["prev_probs"] = e_t, probs
-        st["cur_feat"], st["cur_emb"], st["cur_probs"] = f_t, e_t, probs
-        return _FETCH_POOL.submit(self._unpack, mask, self._bits)
+        return torch.from_numpy(image).to(self.device)
 
     def observe(self, image) -> np.ndarray:
         """`observe_async` and wait: the same masks, serial timing."""
-        return self.observe_async(image).result()
+        with annotate("manet.observe"):
+            fut = self.observe_async(image)
+            with annotate("manet.observe.wait"):
+                return fut.result()
 
     def live_pages(self) -> int:
         """Memory pages the next frame matches (a power-of-2 bucket of the

@@ -19,10 +19,14 @@ ones:
   and its live pages sharded over 4 context members on the card
   (`cp_mesh`).
 
-Prints the step's wall time, the device-busy time (the sum of kernel
-durations on the one stream) and idle share, the device time by layer
-(kernel-name rules below) and the top kernels; with `--out`, writes the
-same as JSON. Needs a CUDA device.
+Prints the step's wall time untraced (the last warm step) and traced,
+the device-busy time (the union of the device's operation intervals, so
+that overlapping ones count once) and the idle share against the
+untraced wall (the profiler's own cost then counts in neither), the host
+ms of each `manet.*` phase span of the traced step (`utils/profiling.
+annotate`: where the host's share of the step goes), the device time by
+layer (kernel durations summed by the kernel-name rules below) and the
+top kernels; with `--out`, writes the same as JSON. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,6 +70,40 @@ def layer_of(name: str) -> str:
         if key in name:
             return layer
     return "other"
+
+
+def device_intervals(prof) -> list[tuple[int, int]]:
+    """(start_ns, end_ns) of each device operation of a trace; a span's
+    device-side shadow is no work."""
+    from torch.autograd import DeviceType
+    return [(e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", lambda: False)()]
+
+
+def union_ms(intervals) -> float:
+    """The length of the union of (start_ns, end_ns) intervals, in ms."""
+    total, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total, end = total + e - s, e
+        elif e > end:
+            total, end = total + e - end, e
+    return total / 1e6
+
+
+def phase_ms(prof) -> dict[str, float]:
+    """Host ms of each `manet.*` span of a trace, summed by name (not its
+    device-side shadow, which spans the device work launched inside it)."""
+    from torch.autograd import DeviceType
+    out: dict[str, float] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("manet.") \
+                and e.device_type() == DeviceType.CPU:
+            out[e.name()] = out.get(e.name(), 0.0) + \
+                (e.end_ns() - e.start_ns()) / 1e6
+    return out
 
 
 def round_step(cfg, frames: int):
@@ -181,11 +219,13 @@ def main(argv=None) -> dict:
 
     per_kernel = defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(evt, "is_user_annotation", False):
             us = evt.time_range.elapsed_us()
             per_kernel[evt.name][0] += us
             per_kernel[evt.name][1] += 1
-    busy_ms = sum(v[0] for v in per_kernel.values()) / 1e3
+    busy_ms = union_ms(device_intervals(prof))
+    untraced = warm[-1]
     by_layer = defaultdict(float)
     for name, (us, _) in per_kernel.items():
         by_layer[layer_of(name)] += us / 1e3
@@ -195,18 +235,23 @@ def main(argv=None) -> dict:
         "path": args.path,
         "frames": args.frames,
         "warm_step_ms": [w * 1e3 for w in warm],
-        "step_ms": wall * 1e3,
+        "step_ms": untraced * 1e3,
+        "traced_step_ms": wall * 1e3,
         "device_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / (wall * 1e3),
+        "idle_share": 1.0 - busy_ms / (untraced * 1e3),
         "kernel_launches": sum(v[1] for v in per_kernel.values()),
+        "phase_ms": phase_ms(prof),
         "by_layer_ms": dict(sorted(by_layer.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:120], "ms": us / 1e3, "count": c}
                         for n, (us, c) in top],
     }
     print(f"[profile] {result['device']}: {args.path} step "
-          f"{result['step_ms']:.2f} ms "
-          f"wall, device busy {busy_ms:.2f} ms (idle share "
-          f"{result['idle_share']:.3f}), {result['kernel_launches']} kernels")
+          f"{result['step_ms']:.2f} ms wall untraced "
+          f"({result['traced_step_ms']:.2f} traced), device busy "
+          f"{busy_ms:.2f} ms (idle share {result['idle_share']:.3f}), "
+          f"{result['kernel_launches']} kernels")
+    for name, ms in result["phase_ms"].items():
+        print(f"[profile]   host {name:30s} {ms:9.3f} ms")
     for layer, ms in result["by_layer_ms"].items():
         print(f"[profile]   {layer:32s} {ms:9.3f} ms")
     for k in result["top_kernels"]:

@@ -5,16 +5,20 @@
   exit it writes a Chrome trace (`trace.json`, viewable in Perfetto or
   chrome://tracing) into `log_dir`. It records the CPU, and the card's
   kernels too where CUDA is available.
-- `annotate(name)`: a named span (`torch.profiler.record_function`)
-  visible in the trace.
-- `LatencyHistogram`: per-round latency percentiles (a copy of JAX's).
+- `annotate(name)`: the program's one span call. While the calling
+  thread's profiler runs it is a `torch.profiler.record_function` range,
+  which the profiler stamps on the same clock as the card's kernels;
+  otherwise it is one shared no-op context, at the cost of a flag read.
+  The profiler's state is thread-local: a span opened on another thread
+  (the download pool's) is never recorded.
 - `elapsed_ms(fn, n, device)`, `slope_ms(fn, iters, reps, device)`: the
   device time of back-to-back calls, and its marginal time a call with
   the fixed host costs cancelled (the measuring entry points'
   `bench_matching_kernel.py`, `profile_stages.py`, `profile_encode.py`).
 
 `profile_round.py` and `profile_train.py` keep their own trace code,
-which also sums device time by kernel class.
+which also sums device time by kernel class; `profile_round.py` reads the
+`manet.*` spans of `annotate`.
 """
 
 from __future__ import annotations
@@ -22,9 +26,8 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Callable, Dict, List
+from typing import Callable
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -43,29 +46,17 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
+# what `annotate` returns while no profiler runs on the calling thread: a
+# `record_function` costs about 10 us a call even then, the flag read 0.1
+NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
+    """A span named `name`, recorded while the calling thread's profiler
+    runs (`with annotate("manet.round"): ...`)."""
+    if not torch._C._autograd._profiler_enabled():
+        return NO_SPAN
     return record_function(name)
-
-
-class LatencyHistogram:
-    def __init__(self):
-        self.samples: List[float] = []
-
-    def add(self, seconds: float):
-        self.samples.append(float(seconds))
-
-    def summary(self) -> Dict[str, float]:
-        if not self.samples:
-            return {}
-        a = np.asarray(self.samples)
-        return {
-            "count": int(a.size),
-            "p50": float(np.percentile(a, 50)),
-            "p90": float(np.percentile(a, 90)),
-            "p99": float(np.percentile(a, 99)),
-            "mean": float(a.mean()),
-            "max": float(a.max()),
-        }
 
 
 def elapsed_ms(fn: Callable[[], object], n: int, device: torch.device

@@ -1,0 +1,243 @@
+"""The port's phase spans (`utils/profiling.annotate`) on the CPU, at the
+tiny configuration.
+
+Under `torch.profiler`, each of `Evaluator.start_sequence`,
+`Evaluator.run_round` and `StreamingIVOS.observe` records its outer span
+once and its phases in order, nested in it, on the calling thread,
+covering at least 95% of it; with no profiler running, `annotate` hands
+back one shared no-op and builds no `record_function`."""
+
+import dataclasses
+import threading
+import types
+
+import numpy as np
+import pytest
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from cvpr2020_manet_tpu_torch import profile_round
+from cvpr2020_manet_tpu_torch.config import tiny_test_config
+from cvpr2020_manet_tpu_torch.data import SyntheticDataset
+from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+from cvpr2020_manet_tpu_torch.engine.streaming import StreamingIVOS
+from cvpr2020_manet_tpu_torch.models import MANet
+from cvpr2020_manet_tpu_torch.utils import profiling
+
+COVER = 0.95
+PHASES = {
+    "start_sequence": ("manet.start_sequence",
+                       ["manet.start.pad", "manet.start.encode"]),
+    "run_round": ("manet.round",
+                  ["manet.round.rasterize", "manet.round.dispatch",
+                   "manet.round.wait", "manet.round.unpack"]),
+    "observe": ("manet.observe",
+                ["manet.observe.ingest", "manet.observe.dispatch",
+                 "manet.observe.wait"]),
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """(cfg, model, dataset, sequence): 3 frames (the bucket is 4, so the
+    start pads frames too), 2 objects, uint8 frames."""
+    cfg = tiny_test_config()
+    model = MANet(cfg.model, device="cpu")
+    ds = SyntheticDataset(image_size=cfg.eval.image_size, num_frames=3,
+                          num_sequences=1, num_objects=2)
+    return cfg, model, ds, ds.sequences()[0]
+
+
+def _u8(images):
+    return (np.clip(images, 0, 1) * 255).astype(np.uint8)
+
+
+def _call(what, tiny, segments=1):
+    """-> the one call whose spans the test reads, its engine made ready
+    (a round after a first one on the same state)."""
+    cfg, model, ds, seq = tiny
+    frames = _u8(ds.images(seq))
+    if what == "observe":
+        s = StreamingIVOS(cfg, model, device="cpu")
+        s.reset(2)
+        s.observe(frames[0])
+        s.correct(ds.initial_scribbles(seq, 0).to_json())
+        return lambda: s.observe(frames[1])
+    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, round_segments=segments))
+    ev = Evaluator(cfg, model, device="cpu")
+    if what == "start_sequence":
+        return lambda: ev.start_sequence(frames, 2)
+    st = ev.start_sequence(frames, 2)
+    scr = ds.initial_scribbles(seq, 0).to_json()
+    ev.run_round(st, scr, frames.shape[1:3], 2)     # first-call costs
+    return lambda: ev.run_round(st, scr, frames.shape[1:3], 2)
+
+
+def _spans(prof):
+    """[(name, start_ns, end_ns, thread)] of the `manet.*` spans, by
+    start."""
+    return sorted(((e.name(), e.start_ns(), e.end_ns(), e.start_thread_id())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith("manet.")), key=lambda r: r[1])
+
+
+def _traced(call):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.annotate("test.caller"):
+            call()
+    spans = _spans(prof)
+    caller, = [e for e in prof.profiler.kineto_results.events()
+               if e.name() == "test.caller"]
+    return spans, caller.start_thread_id()
+
+
+def _cover(spans, outer_name):
+    """The share of the outer span that its phases cover."""
+    (_, a, b, _), = [s for s in spans if s[0] == outer_name]
+    return sum(e - s for n, s, e, _ in spans if n != outer_name) / (b - a)
+
+
+def _best_cover(call, outer_name, spans):
+    """The phases' cover of the outer span, the best of this trace and two
+    more: the gaps between phases are a few statements, but a busy host
+    can preempt the thread there; the structure is held on every trace."""
+    covers = [_cover(spans, outer_name)]
+    for _ in range(2):
+        more, _ = _traced(call)
+        assert [s[0] for s in more] == [s[0] for s in spans]
+        covers.append(_cover(more, outer_name))
+    return max(covers)
+
+
+@pytest.mark.parametrize("what", list(PHASES))
+def test_call_emits_its_phases_once_in_order(tiny, what):
+    call = _call(what, tiny)
+    outer_name, phases = PHASES[what]
+    spans, thread = _traced(call)
+    outer = [s for s in spans if s[0] == outer_name]
+    assert len(outer) == 1, spans
+    _, a, b, tid = outer[0]
+    assert tid == thread
+    inner = [s for s in spans if s[0] != outer_name]
+    assert [s[0] for s in inner] == phases
+    for name, s, e, t in inner:
+        assert a <= s <= e <= b, name
+        assert t == thread, name
+    # the phases follow one another: none overlaps the next
+    assert all(x[2] <= y[1] for x, y in zip(inner, inner[1:]))
+    assert _best_cover(call, outer_name, spans) >= COVER
+
+
+def test_segmented_round_alternates_wait_and_unpack(tiny):
+    """A segmented round waits for and unpacks each span's masks in turn:
+    rasterize and dispatch once, then wait / unpack pairs (the annotated
+    frame's, one a span), then the full-size unpack, all on the calling
+    thread."""
+    call = _call("run_round", tiny, segments=2)
+    spans, thread = _traced(call)
+    names = [s[0] for s in spans if s[0] != "manet.round"]
+    n_spans = 2             # a bucket of 4 frames: 3 sweep steps in 2 spans
+    assert names == (["manet.round.rasterize", "manet.round.dispatch"]
+                     + ["manet.round.wait", "manet.round.unpack"]
+                     * (1 + n_spans) + ["manet.round.unpack"])
+    assert {s[3] for s in spans} == {thread}
+    assert _best_cover(call, "manet.round", spans) >= COVER
+
+
+def test_annotate_off_is_the_shared_no_op(monkeypatch):
+    def forbidden(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+
+    monkeypatch.setattr(profiling, "record_function", forbidden)
+    assert not torch._C._autograd._profiler_enabled()
+    span = profiling.annotate("manet.round")
+    assert span is profiling.NO_SPAN
+    with span, profiling.annotate("manet.round.unpack"):
+        pass
+    assert profiling.annotate("x") is profiling.annotate("y")
+
+
+def test_annotate_on_records_only_the_profiling_thread():
+    """The profiler's state is thread-local: a span opened on another
+    thread while the main thread profiles is the no-op, and absent from
+    the trace."""
+    seen = {}
+
+    def other():
+        seen["span"] = profiling.annotate("manet.other")
+        with seen["span"]:
+            pass
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.annotate("manet.main"):
+            t = threading.Thread(target=other)
+            t.start()
+            t.join(timeout=30)
+    assert not t.is_alive()
+    assert seen["span"] is profiling.NO_SPAN
+    assert [s[0] for s in _spans(prof)] == ["manet.main"]
+
+
+class _Event:
+    """The reads `profile_round` makes of a profiler event."""
+
+    def __init__(self, name, device, start, end, annotation=False):
+        self._v = (name, device, start, end, annotation)
+
+    def name(self):
+        return self._v[0]
+
+    def device_type(self):
+        return self._v[1]
+
+    def start_ns(self):
+        return self._v[2]
+
+    def end_ns(self):
+        return self._v[3]
+
+    def is_user_annotation(self):
+        return self._v[4]
+
+
+class _Profile:
+    def __init__(self, events):
+        self.profiler = types.SimpleNamespace(
+            kineto_results=types.SimpleNamespace(events=lambda: events))
+
+
+def test_profile_round_reads_the_phase_spans(tiny):
+    """`profile_round`'s reductions on a CPU trace of one round: the host
+    ms of each phase span, and device busy as the union of intervals."""
+    call = _call("run_round", tiny)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    ms = profile_round.phase_ms(prof)
+    assert set(ms) == {"manet.round"} | set(PHASES["run_round"][1])
+    assert sum(v for k, v in ms.items() if k != "manet.round") \
+        <= ms["manet.round"]
+    assert profile_round.device_intervals(prof) == []
+    # a span's device-side shadow (on the card) is neither host time nor
+    # device work
+    host = _Event("manet.round.dispatch", DeviceType.CPU, 0, 3_000_000)
+    shadow = _Event("manet.round.dispatch", DeviceType.CUDA, 1_000_000,
+                    9_000_000, annotation=True)
+    kernel = _Event("kernel", DeviceType.CUDA, 2_000_000, 4_000_000)
+    fake = _Profile([host, shadow, kernel])
+    assert profile_round.phase_ms(fake) == {"manet.round.dispatch": 3.0}
+    assert profile_round.device_intervals(fake) == [(2_000_000, 4_000_000)]
+    assert profile_round.union_ms([]) == 0.0
+    # overlapping intervals count once; ns in, ms out
+    assert profile_round.union_ms(
+        [(0, 2_000_000), (1_000_000, 3_000_000), (5_000_000, 6_000_000)]
+    ) == pytest.approx(4.0)

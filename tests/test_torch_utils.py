@@ -1,8 +1,8 @@
 """The port's small utilities against the JAX package's, on the CPU:
-`utils/meters.py`, `utils/profiling.py` and `utils/visualize.py` (with the
-RGB PNG writer of `utils/colormap.py`). Counterparts of
-`tests/test_utils.py`, `tests/test_visualize.py` and the histogram test of
-`tests/test_eval_checkpoint_path.py`."""
+`utils/meters.py`, `utils/profiling.py`'s Chrome trace and
+`utils/visualize.py` (with the RGB PNG writer of `utils/colormap.py`).
+Counterparts of `tests/test_utils.py` and `tests/test_visualize.py`; the
+spans of `profiling.annotate` are `tests/test_torch_spans.py`'s."""
 
 import json
 
@@ -12,7 +12,6 @@ import torch
 from PIL import Image
 
 from cvpr2020_manet_tpu.utils import meters as jax_meters
-from cvpr2020_manet_tpu.utils import profiling as jax_profiling
 from cvpr2020_manet_tpu.utils import visualize as jax_visualize
 from cvpr2020_manet_tpu_torch.interactive.scribbles import Scribbles
 from cvpr2020_manet_tpu_torch.utils import colormap, profiling, visualize
@@ -32,23 +31,6 @@ def test_average_meter_equals_jax(seed):
             (theirs.avg, theirs.count, theirs.sum)
     ours.reset()
     assert (ours.sum, ours.count, ours.avg) == (0.0, 0, 0.0)
-
-
-@pytest.mark.parametrize("samples", [
-    [0.1, 0.2, 0.3, 0.4, 1.0],
-    np.random.default_rng(3).exponential(0.05, 101).tolist(),
-], ids=["fixed", "seeded"])
-def test_latency_histogram_equals_jax(samples):
-    ours, theirs = profiling.LatencyHistogram(), \
-        jax_profiling.LatencyHistogram()
-    assert ours.summary() == theirs.summary() == {}
-    for v in samples:
-        ours.add(v)
-        theirs.add(v)
-    got = ours.summary()
-    assert got == theirs.summary()
-    assert set(got) == {"count", "p50", "p90", "p99", "mean", "max"}
-    assert got["count"] == len(samples) and got["max"] == max(samples)
 
 
 def test_trace_writes_chrome_trace_on_cpu(tmp_path):
