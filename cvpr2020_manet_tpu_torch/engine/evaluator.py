@@ -19,11 +19,15 @@ over a padded frame bucket). Per round (`dispatch_round`):
    resetting its carry to the interaction output where the backward sweep
    starts; each step runs local matching, min-fusion, the decomposed
    propagation head and a softmax;
-4. probabilities are upsampled, argmaxed and bit-packed (`_masks_impl`).
-   The monolithic round (`round_segments=1`) packs every frame at its end
-   and `collect_round` downloads them; a segmented round splits the sweep
-   into `round_segments` spans and hands each span's packed masks to the
-   download pool while the next span computes. Both give the same masks.
+4. probabilities are upsampled and argmaxed (`_labels_impl`). The
+   monolithic round (`round_segments=1`) keeps every frame's labels on the
+   device at its end; `collect_round` repeats them by `mask_stride`, crops
+   them to the real frames and the image and casts them to int32 there
+   (`_crop_labels`), then downloads them into pinned host memory (on a
+   CPU evaluator they are already on the host). A segmented round splits
+   the sweep into `round_segments` spans, bit-packs each span's labels
+   (`_masks_impl`) and hands them to the download pool while the next
+   span computes; the host unpacks them. Both give the same masks.
 
 Frames come as host-normalized floats or as raw uint8 RGB, which is
 padded with the ImageNet mean byte and normalized on the device.
@@ -37,8 +41,10 @@ runs on the calling thread) cover each call end to end:
 `manet.start.encode` (upload, encoder, initial state); `manet.round` =
 `manet.round.rasterize` (scribbles to a padded raster) +
 `manet.round.dispatch` (all of `dispatch_round`) + `manet.round.wait` (the
-masks' download) + `manet.round.unpack` (unpack, mask-stride repeat, crop,
-int32 cast); a segmented round alternates the last two per span.
+masks' crop and download) + `manet.round.unpack` (the host's share: the
+numpy view of the downloaded labels; a segmented round's unpacking,
+mask-stride repeat, crop and int32 cast, which alternates with the waits,
+one pair a span).
 
 The helpers the serving engines share with the evaluator live here too:
 the mask bit-packing, the object, mask-bit and live-page buckets, and the
@@ -178,11 +184,13 @@ def unpack_labels(packed: np.ndarray, bits: int) -> np.ndarray:
 @dataclasses.dataclass
 class RoundHandle:
     """Device outputs of one dispatched round, not yet downloaded."""
-    pk: int                 # mask bits/px
     annot: int              # annotated frame index
     nf: int                 # actual (unpadded) frame count
     t_bucket: int
-    masks: Any = None       # monolithic: (T, H, W * pk / 8) packed, device
+    # monolithic: (T, H_pad / mask_stride, W_pad / mask_stride) int64
+    # argmax labels of every frame of the bucket, on the device, unpacked
+    masks: Any = None
+    pk: int | None = None   # segmented: mask bits/px
     annot_mask: Any = None  # segmented: Future of the annotated frame's mask
     seg_masks: list | None = None   # segmented: [(start, count, Future)]
 
@@ -214,6 +222,19 @@ def release_state(state: SequenceState, keep_features: bool = False) -> None:
 
 def _download(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """`t` on the host. A device tensor is copied into pinned memory from
+    PyTorch's caching host allocator, whose blocks stay mapped and are
+    reused once their holders drop them, and the copy is waited for; a
+    host tensor is returned as it is."""
+    if t.device.type == "cpu":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return out
 
 
 class Evaluator:
@@ -391,9 +412,14 @@ class Evaluator:
         return spans
 
     @staticmethod
+    def _labels_impl(probs, *, hw):
+        """(T, h, w, O) -> (T, H, W) int64 argmax labels at `hw`."""
+        return resize_bilinear(probs, hw).argmax(dim=-1)
+
+    @staticmethod
     def _masks_impl(probs, *, hw, pack):
         """(T, h, w, O) -> (T, H, W * pack / 8) bit-packed argmax labels."""
-        lab = resize_bilinear(probs, hw).argmax(dim=-1).to(torch.uint8)
+        lab = Evaluator._labels_impl(probs, hw=hw).to(torch.uint8)
         return pack_labels(lab, pack)
 
     # ---------------- host orchestration ------------------------------- #
@@ -530,7 +556,8 @@ class Evaluator:
         `pad_to` (-1 = unscribbled). With round_segments > 1 the sweep
         runs in segments, and each segment's packed masks go to the
         download pool while the next segment computes; the monolithic
-        round packs all frames at its end, for `collect_round`."""
+        round argmaxes all frames at its end and keeps the labels on the
+        device, for `collect_round`."""
         with annotate("manet.round.dispatch"):
             cfg = self.cfg
             dev = self.device
@@ -546,7 +573,6 @@ class Evaluator:
             frame_valid = torch.arange(t_bucket, device=dev) < state.num_frames
             ms = cfg.eval.mask_stride
             mask_hw = (raster.shape[0] // ms, raster.shape[1] // ms)
-            pk = aligned_mask_bits(num_objects + 1, mask_hw[1])
             raster_t = torch.as_tensor(np.asarray(raster, np.int8), device=dev)
             stack = None
             if self.memory_mode == "stacked":
@@ -563,9 +589,11 @@ class Evaluator:
             probs[annot] = head["int_probs"]
             gmap = head["gmap_mem"].clone()
             carry = head["int_probs"]
-            handle = RoundHandle(pk=pk, annot=annot, nf=state.num_frames,
+            handle = RoundHandle(annot=annot, nf=state.num_frames,
                                  t_bucket=t_bucket)
             if cfg.eval.round_segments > 1:
+                pk = aligned_mask_bits(num_objects + 1, mask_hw[1])
+                handle.pk = pk
                 handle.annot_mask = _FETCH_POOL.submit(
                     _download, self._masks_impl(head["int_probs"][None],
                                                 hw=mask_hw, pack=pk))
@@ -581,7 +609,7 @@ class Evaluator:
                 if t_bucket > 1:
                     self._sweep_impl(state, head, annot, carry, probs, gmap,
                                      frame_valid, start=0, count=t_bucket - 1)
-                handle.masks = self._masks_impl(probs, hw=mask_hw, pack=pk)
+                handle.masks = self._labels_impl(probs, hw=mask_hw)
             state.prev_masks, state.gmap_mem = probs, gmap
             state.int_mem = head["int_mem"]
             state.round_idx += 1
@@ -589,14 +617,15 @@ class Evaluator:
 
     def collect_round(self, handle: RoundHandle,
                       image_hw: tuple[int, int]) -> np.ndarray:
-        """Download (monolithic) or gather (segmented) a dispatched
-        round's (T_actual, H, W) labels."""
-        pk = handle.pk
+        """Crop, cast and download (monolithic) or gather and unpack
+        (segmented) a dispatched round's (T_actual, H, W) int32 labels."""
         if handle.masks is not None:
             with annotate("manet.round.wait"):
-                packed = _download(handle.masks[:handle.nf])
+                masks = _to_host(self._crop_labels(handle.masks[:handle.nf],
+                                                   image_hw))
             with annotate("manet.round.unpack"):
-                return self._full_size(unpack_labels(packed, pk), image_hw)
+                return masks.numpy()
+        pk = handle.pk
         # segmented: each span's masks unpack while later spans download
         with annotate("manet.round.wait"):
             packed = handle.annot_mask.result()
@@ -619,6 +648,22 @@ class Evaluator:
                         masks[f] = lab[j]
         with annotate("manet.round.unpack"):
             return self._full_size(masks, image_hw)
+
+    def _crop_labels(self, lab: torch.Tensor,
+                     image_hw: tuple[int, int]) -> torch.Tensor:
+        """`_full_size` on the labels' own device: (T_actual, H_pad /
+        mask_stride, W_pad / mask_stride) labels -> (T_actual, H, W) int32,
+        contiguous. The low-resolution labels are cropped to what covers
+        the image and cast before the repeat."""
+        ms = self.cfg.eval.mask_stride
+        h_img, w_img = image_hw
+        h, w = -(-h_img // ms), -(-w_img // ms)
+        lab = lab[:, :h, :w].to(torch.int32)
+        if ms > 1:
+            t, h, w = lab.shape
+            lab = lab[:, :, None, :, None].expand(t, h, ms, w, ms).reshape(
+                t, h * ms, w * ms)[:, :h_img, :w_img]
+        return lab.contiguous()
 
     def _full_size(self, masks: np.ndarray,
                    image_hw: tuple[int, int]) -> np.ndarray:

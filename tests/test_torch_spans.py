@@ -154,6 +154,38 @@ def test_segmented_round_alternates_wait_and_unpack(tiny):
     assert _best_cover(call, "manet.round", spans) >= COVER
 
 
+@pytest.mark.parametrize("mask_stride", [1, 2])
+def test_monolithic_round_waits_then_unpacks(tiny, mask_stride):
+    """The monolithic round crops, repeats and casts its labels before the
+    download, which `wait` covers; `unpack` still follows it, once, on
+    the calling thread, and still closes the round. Frames cropped to 30
+    x 44 (padded to 32 x 48), so that the crop has padding to drop."""
+    cfg, model, ds, seq = tiny
+    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, round_segments=1, mask_stride=mask_stride))
+    ev = Evaluator(cfg, model, device="cpu")
+    frames = _u8(ds.images(seq))[:, :30, :44]
+    st = ev.start_sequence(frames, 2)
+    scr = ds.initial_scribbles(seq, 0).to_json()
+    ev.run_round(st, scr, frames.shape[1:3], 2)     # first-call costs
+    got = {}
+
+    def call():
+        got["masks"] = ev.run_round(st, scr, frames.shape[1:3], 2)
+
+    spans, thread = _traced(call)
+    names = [s[0] for s in spans]
+    assert names == ["manet.round"] + PHASES["run_round"][1]
+    assert {s[3] for s in spans} == {thread}
+    (_, a, b, _), = [s for s in spans if s[0] == "manet.round"]
+    (_, u0, u1, _), = [s for s in spans if s[0] == "manet.round.unpack"]
+    assert a <= u0 <= u1 <= b
+    assert all(s[2] <= u0 for s in spans
+               if s[0] not in ("manet.round", "manet.round.unpack"))
+    assert got["masks"].shape == (frames.shape[0], 30, 44)
+    assert got["masks"].dtype == np.int32
+
+
 def test_annotate_off_is_the_shared_no_op(monkeypatch):
     def forbidden(name):
         raise AssertionError(f"record_function({name!r}) with no profiler")
