@@ -21,6 +21,20 @@ caller can interleave:
   pool while the next sequence computes;
 - `drain`: wait for the downloads and unpack.
 
+`dispatch(..., probs_of=clips)` also hands back, from the same call, the
+state of the clips it names: each one's per-frame probabilities (T, hh,
+ww, O) at the feature stride and its seeded interaction memory, on the
+device, as computed for its labels (a checker steps a reference from
+them). Without it nothing is kept beyond the packed labels.
+
+Phase spans (`utils/profiling.annotate`; recorded only while a profiler
+runs on the calling thread): `manet.batch.upload` (the chunks' copies,
+issued on the calling thread or waited for from the pool, and the
+encoder's enqueue), `manet.batch.dispatch` (all of `dispatch`), with one
+`manet.batch.clip` a clip (seeding, the sweep, the upsample, argmax and
+pack, and the hand-off to the download pool), and `manet.batch.drain`
+(the wait for the downloads and the host unpack).
+
     python -m cvpr2020_manet_tpu_torch.engine.propagate_batch \\
         --batch 4 --frames 16 [--matching_int8] [--ingest yuv420] \\
         [--dataset davis|ytvos --data_root /data/DAVIS]
@@ -46,6 +60,7 @@ from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 from cvpr2020_manet_tpu_torch.models.manet import MANet
 from cvpr2020_manet_tpu_torch.utils.ingest import (
     preprocess_frames, preprocess_yuv420, rgb_to_yuv420_host)
+from cvpr2020_manet_tpu_torch.utils.profiling import annotate
 
 __all__ = ["BatchPropagator", "preprocess_frames", "timed_batches", "main"]
 
@@ -80,10 +95,13 @@ class BatchPropagator:
         return self.model.extract_features(x)
 
     @torch.inference_mode()
-    def _one_seq(self, feat_s, emb_s, first_mask, ov, o: int):
+    def _one_seq(self, feat_s, emb_s, first_mask, ov, o: int,
+                 keep: bool = False):
         """One sequence: (T, hh, ww, *) features and embeddings plus the
-        first frame's labels (hh, ww) -> bit-packed argmax label maps
-        (T, H, W * bits / 8) on the device. `o` is its object bucket."""
+        first frame's labels (hh, ww) -> (bit-packed argmax label maps
+        (T, H, W * bits / 8) on the device, and with `keep` its state:
+        {"probs": (T, hh, ww, o) f32, "int_mem": (o, hh, ww, Cma)}, else
+        None). `o` is its object bucket."""
         model = self.model
         t, hh, ww, _ = feat_s.shape
         s = self.cfg.model.feature_stride
@@ -116,9 +134,11 @@ class BatchPropagator:
                 head_pre=head_fp[i][None] + head_mp)
             probs, e_prev = torch.softmax(logits, dim=-1), emb_s[i]
             probs_seq.append(probs)
-        up = resize_bilinear(torch.stack(probs_seq), (hh * s, ww * s))
+        probs_seq = torch.stack(probs_seq)
+        up = resize_bilinear(probs_seq, (hh * s, ww * s))
         lab = up.argmax(dim=-1).to(torch.uint8)
-        return pack_labels(lab, bucket_mask_bits(o))
+        state = {"probs": probs_seq, "int_mem": int_mem} if keep else None
+        return pack_labels(lab, bucket_mask_bits(o)), state
 
     # -- pipeline pieces ------------------------------------------------- #
 
@@ -128,20 +148,22 @@ class BatchPropagator:
         ingest='yuv420' a (y, uv) pair already in planar YUV (the decoder's
         output; RGB is converted per chunk on the host). Returns per-chunk
         (features, embeddings)."""
-        if isinstance(frames_u8, tuple):
-            if self.ingest != "yuv420":
-                raise ValueError("packed (y, uv) input needs ingest='yuv420'")
-            y, uv = frames_u8
-            chunks = [(y[i:i + CHUNK], uv[i:i + CHUNK])
-                      for i in range(0, y.shape[0], CHUNK)]
-        else:
-            chunks = [frames_u8[i:i + CHUNK]
-                      for i in range(0, frames_u8.shape[0], CHUNK)]
-        if threads > 1:
-            pool = self._ensure_upload_pool(threads)
-            puts = [pool.submit(self._to_device, c) for c in chunks]
-            return [self._extract(f.result()) for f in puts]
-        return [self._extract(self._to_device(c)) for c in chunks]
+        with annotate("manet.batch.upload"):
+            if isinstance(frames_u8, tuple):
+                if self.ingest != "yuv420":
+                    raise ValueError("packed (y, uv) input needs "
+                                     "ingest='yuv420'")
+                y, uv = frames_u8
+                chunks = [(y[i:i + CHUNK], uv[i:i + CHUNK])
+                          for i in range(0, y.shape[0], CHUNK)]
+            else:
+                chunks = [frames_u8[i:i + CHUNK]
+                          for i in range(0, frames_u8.shape[0], CHUNK)]
+            if threads > 1:
+                pool = self._ensure_upload_pool(threads)
+                puts = [pool.submit(self._to_device, c) for c in chunks]
+                return [self._extract(f.result()) for f in puts]
+            return [self._extract(self._to_device(c)) for c in chunks]
 
     def host_frames(self, frames_u8: np.ndarray):
         """(B, T, H, W, 3) uint8 RGB -> `upload`'s input: the frames
@@ -171,42 +193,59 @@ class BatchPropagator:
 
     @torch.inference_mode()
     def dispatch(self, extracted: list, first_masks: np.ndarray,
-                 num_objects: np.ndarray, batch_shape: tuple):
+                 num_objects: np.ndarray, batch_shape: tuple,
+                 probs_of=()):
         """Propagate every sequence, each in its own object bucket, and
         hand its packed masks to the download pool. -> (download futures,
-        bits per sequence)."""
-        b, t = batch_shape
-        n_obj = [int(n) for n in np.asarray(num_objects)]
-        buckets = [object_bucket_for(n, self.o) for n in n_obj]
-        bits_list = [bucket_mask_bits(ob) for ob in buckets]
-        # validated before any device work: the bit-packing needs the
-        # upsampled width divisible by 8 / bits
-        w_img = extracted[0][0].shape[2] * self.cfg.model.feature_stride
-        for bits in set(bits_list):
-            if w_img % (8 // bits):
-                raise ValueError(f"width {w_img} must be a multiple of "
-                                 f"{8 // bits} (pad_to)")
-        feat = torch.cat([f for f, _ in extracted])
-        emb = torch.cat([e for _, e in extracted])
-        hh, ww = feat.shape[1:3]
-        feat = feat.reshape(b, t, hh, ww, -1)
-        emb = emb.reshape(b, t, hh, ww, -1)
-        fm = torch.as_tensor(np.asarray(first_masks), device=self.device)
-        fetches = []
-        for i in range(b):
-            ov = torch.zeros((buckets[i],), dtype=torch.float32,
-                             device=self.device)
-            ov[:n_obj[i] + 1] = 1.0
-            packed = self._one_seq(feat[i], emb[i], fm[i], ov, buckets[i])
-            fetches.append(_FETCH_POOL.submit(_download, packed))
-        return fetches, bits_list
+        bits per sequence); with `probs_of` (clip indices) a third item,
+        {clip: {"probs": (T, hh, ww, O) f32, "int_mem": (O, hh, ww, Cma)}}
+        on the device: the state those clips' labels were computed
+        from."""
+        with annotate("manet.batch.dispatch"):
+            b, t = batch_shape
+            n_obj = [int(n) for n in np.asarray(num_objects)]
+            buckets = [object_bucket_for(n, self.o) for n in n_obj]
+            bits_list = [bucket_mask_bits(ob) for ob in buckets]
+            # validated before any device work: the bit-packing needs the
+            # upsampled width divisible by 8 / bits
+            w_img = extracted[0][0].shape[2] * self.cfg.model.feature_stride
+            for bits in set(bits_list):
+                if w_img % (8 // bits):
+                    raise ValueError(f"width {w_img} must be a multiple of "
+                                     f"{8 // bits} (pad_to)")
+            keep = {int(i) for i in probs_of}
+            if not keep <= set(range(b)):
+                raise ValueError(f"probs_of {sorted(keep)} names clips "
+                                 f"outside the batch of {b}")
+            feat = torch.cat([f for f, _ in extracted])
+            emb = torch.cat([e for _, e in extracted])
+            hh, ww = feat.shape[1:3]
+            feat = feat.reshape(b, t, hh, ww, -1)
+            emb = emb.reshape(b, t, hh, ww, -1)
+            fm = torch.as_tensor(np.asarray(first_masks), device=self.device)
+            fetches, kept = [], {}
+            for i in range(b):
+                with annotate("manet.batch.clip"):
+                    ov = torch.zeros((buckets[i],), dtype=torch.float32,
+                                     device=self.device)
+                    ov[:n_obj[i] + 1] = 1.0
+                    packed, state = self._one_seq(feat[i], emb[i], fm[i], ov,
+                                                  buckets[i], keep=i in keep)
+                    fetches.append(_FETCH_POOL.submit(_download, packed))
+                    if state is not None:
+                        kept[i] = state
+            if probs_of:
+                return fetches, bits_list, kept
+            return fetches, bits_list
 
     @staticmethod
     def drain(fetches, bits) -> np.ndarray:
         """Wait for the downloads (`dispatch`'s futures and bits per
         sequence); -> (B, T, H, W) int32 labels."""
-        labs = [unpack_labels(f.result(), b) for f, b in zip(fetches, bits)]
-        return np.stack(labs).astype(np.int32)
+        with annotate("manet.batch.drain"):
+            labs = [unpack_labels(f.result(), b)
+                    for f, b in zip(fetches, bits)]
+            return np.stack(labs).astype(np.int32)
 
     def propagate(self, frames_u8: np.ndarray, first_masks: np.ndarray,
                   num_objects: np.ndarray) -> np.ndarray:

@@ -33,6 +33,7 @@ from cvpr2020_manet_tpu_torch.interactive.metrics import batched_f_measure
 from cvpr2020_manet_tpu_torch.interactive.robot import InteractiveScribblesRobot
 from cvpr2020_manet_tpu_torch.interactive.scribbles import (
     Scribbles, annotated_frames)
+from cvpr2020_manet_tpu_torch.utils.profiling import annotate
 
 REPORT_COLUMNS = [
     "sequence", "scribble_idx", "interaction", "object_id", "frame",
@@ -131,52 +132,61 @@ class InteractiveSession:
         return seq, scr.to_json(), self._interaction == 0
 
     def submit_masks(self, masks: np.ndarray) -> None:
-        """Score a full-video label map (T, H, W) and prepare next round."""
-        if not self._awaiting_submit:
-            raise RuntimeError("call next() before submit_masks()")
-        dt = self._time() - self._t_handout
-        self._elapsed += dt
-        seq, set_idx = self.current
-        gt = self.dataset.gt_masks(seq)
-        n_obj = self.dataset.num_objects(seq)
-        masks = np.asarray(masks)
-        assert masks.shape == gt.shape, (masks.shape, gt.shape)
+        """Score a full-video label map (T, H, W) and prepare next round.
 
-        self._annotated.extend(annotated_frames(self._last_scribbles))
-        for obj in range(1, n_obj + 1):
-            m_obj, g_obj = masks == obj, gt == obj
-            jj = np.array([_iou(m_obj[t], g_obj[t])
-                           for t in range(gt.shape[0])])
-            ff = batched_f_measure(
-                m_obj.view(np.uint8), g_obj.view(np.uint8), 1)
-            for t in range(gt.shape[0]):
-                self._rows.append(dict(
-                    sequence=seq, scribble_idx=set_idx,
-                    interaction=self._interaction, object_id=obj, frame=t,
-                    jaccard=float(jj[t]), contour=float(ff[t]),
-                    timing=self._elapsed))
+        Spans (`utils/profiling.annotate`, recorded only while a profiler
+        runs on the calling thread): `manet.session.submit` over the
+        call, with `manet.session.submit.score` (the ground truth read and
+        the per-object J and F) and `manet.session.submit.robot` (the
+        robot's next scribbles, on rounds that have a next one)."""
+        with annotate("manet.session.submit"):
+            if not self._awaiting_submit:
+                raise RuntimeError("call next() before submit_masks()")
+            dt = self._time() - self._t_handout
+            self._elapsed += dt
+            seq, set_idx = self.current
+            with annotate("manet.session.submit.score"):
+                gt = self.dataset.gt_masks(seq)
+                n_obj = self.dataset.num_objects(seq)
+                masks = np.asarray(masks)
+                assert masks.shape == gt.shape, (masks.shape, gt.shape)
 
-        self._interaction += 1
-        self._awaiting_submit = False
-        if (self.max_time is not None
-                and self._elapsed >= self.max_time * max(n_obj, 1)):
-            # time budget for this item exhausted (davisinteractive stops
-            # on max_time OR max_nb_interactions, whichever first)
-            self._interaction = self.max_interactions
-        if self._interaction < self.max_interactions:
-            t_robot = self._time()
-            new = self.robot.interact(
-                seq, masks, gt, n_obj, annotated=self._annotated)
-            # robot time is service time: it lands in the NEXT round's
-            # cumulative timestamp, as in the upstream local service
-            self._elapsed += self._time() - t_robot
-            if not annotated_frames(new):
-                # prediction is (near-)perfect: the robot has nothing to
-                # correct — end this item early
+                self._annotated.extend(annotated_frames(self._last_scribbles))
+                for obj in range(1, n_obj + 1):
+                    m_obj, g_obj = masks == obj, gt == obj
+                    jj = np.array([_iou(m_obj[t], g_obj[t])
+                                   for t in range(gt.shape[0])])
+                    ff = batched_f_measure(
+                        m_obj.view(np.uint8), g_obj.view(np.uint8), 1)
+                    for t in range(gt.shape[0]):
+                        self._rows.append(dict(
+                            sequence=seq, scribble_idx=set_idx,
+                            interaction=self._interaction, object_id=obj,
+                            frame=t, jaccard=float(jj[t]),
+                            contour=float(ff[t]), timing=self._elapsed))
+
+            self._interaction += 1
+            self._awaiting_submit = False
+            if (self.max_time is not None
+                    and self._elapsed >= self.max_time * max(n_obj, 1)):
+                # time budget for this item exhausted (davisinteractive stops
+                # on max_time OR max_nb_interactions, whichever first)
                 self._interaction = self.max_interactions
-            else:
-                self._last_scribbles = new
-                self._scribbles = self._scribbles.merge(new)
+            if self._interaction < self.max_interactions:
+                with annotate("manet.session.submit.robot"):
+                    t_robot = self._time()
+                    new = self.robot.interact(
+                        seq, masks, gt, n_obj, annotated=self._annotated)
+                    # robot time is service time: it lands in the NEXT round's
+                    # cumulative timestamp, as in the upstream local service
+                    self._elapsed += self._time() - t_robot
+                if not annotated_frames(new):
+                    # prediction is (near-)perfect: the robot has nothing to
+                    # correct — end this item early
+                    self._interaction = self.max_interactions
+                else:
+                    self._last_scribbles = new
+                    self._scribbles = self._scribbles.merge(new)
 
     # -- reporting ----------------------------------------------------------
     def get_report(self) -> List[Dict[str, Any]]:

@@ -273,3 +273,80 @@ def test_profile_round_reads_the_phase_spans(tiny):
     assert profile_round.union_ms(
         [(0, 2_000_000), (1_000_000, 3_000_000), (5_000_000, 6_000_000)]
     ) == pytest.approx(4.0)
+
+
+def test_batch_pieces_emit_their_spans(tiny):
+    """`BatchPropagator`'s upload, dispatch (one `manet.batch.clip` a
+    clip, nested in it) and drain each record their span once, in order,
+    on the calling thread; the clip spans cover most of the dispatch."""
+    from cvpr2020_manet_tpu_torch.engine.propagate_batch import (
+        BatchPropagator)
+    cfg, model, ds, seq = tiny
+    prop = BatchPropagator(cfg, model, ingest="yuv420", device="cpu")
+    frames = np.stack([_u8(ds.images(seq))] * 2)
+    first = np.stack([ds.gt_masks(seq)[0, ::4, ::4]] * 2).astype(np.int32)
+    up = prop.host_frames(frames)
+    nobj = np.array([2, 1])
+    prop.propagate(frames, first, nobj)              # first-call costs
+
+    def call():
+        ex = prop.upload(up)
+        prop.drain(*prop.dispatch(ex, first, nobj, frames.shape[:2]))
+
+    spans, thread = _traced(call)
+    assert [s[0] for s in spans] == [
+        "manet.batch.upload", "manet.batch.dispatch", "manet.batch.clip",
+        "manet.batch.clip", "manet.batch.drain"]
+    assert {s[3] for s in spans} == {thread}
+    (_, a, b, _), = [s for s in spans if s[0] == "manet.batch.dispatch"]
+    clips = [s for s in spans if s[0] == "manet.batch.clip"]
+    assert all(a <= s <= e <= b for _, s, e, _ in clips)
+    assert spans[0][2] <= a and b <= spans[-1][1]
+    assert sum(e - s for _, s, e, _ in clips) / (b - a) >= 0.5
+
+
+@pytest.mark.parametrize("rounds", [2, 1])
+def test_submit_scores_then_asks_the_robot(tiny, rounds):
+    """`InteractiveSession.submit_masks` records `manet.session.submit`
+    with `.score` then, where a next round follows, `.robot`, nested and
+    on the calling thread."""
+    from cvpr2020_manet_tpu_torch.interactive.session import (
+        InteractiveSession)
+    _, _, ds, seq = tiny
+    sess = InteractiveSession(ds, max_interactions=rounds)
+    assert sess.next()
+    sess.get_scribbles()
+    masks = np.zeros(ds.gt_masks(seq).shape, np.int32)
+    spans, thread = _traced(lambda: sess.submit_masks(masks))
+    names = [s[0] for s in spans]
+    phases = ["manet.session.submit.score"] + (
+        ["manet.session.submit.robot"] if rounds > 1 else [])
+    assert names == ["manet.session.submit"] + phases
+    (_, a, b, _), = [s for s in spans if s[0] == "manet.session.submit"]
+    assert all(a <= s <= e <= b and t == thread for _, s, e, t in spans)
+    assert len(sess.get_report()) == ds.gt_masks(seq).shape[0] * 2
+
+
+def test_batch_and_submit_spans_are_off_without_a_profiler(tiny,
+                                                           monkeypatch):
+    """With no profiler running, neither the batch engine nor the session
+    builds a `record_function`."""
+    from cvpr2020_manet_tpu_torch.engine.propagate_batch import (
+        BatchPropagator)
+    from cvpr2020_manet_tpu_torch.interactive.session import (
+        InteractiveSession)
+
+    def forbidden(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+
+    monkeypatch.setattr(profiling, "record_function", forbidden)
+    cfg, model, ds, seq = tiny
+    prop = BatchPropagator(cfg, model, device="cpu")
+    frames = _u8(ds.images(seq))[None]
+    first = ds.gt_masks(seq)[:1, ::4, ::4].astype(np.int32)
+    labels = prop.propagate(frames, first, np.array([2]))
+    sess = InteractiveSession(ds, max_interactions=2)
+    assert sess.next()
+    sess.get_scribbles()
+    sess.submit_masks(labels[0])
+    assert sess.next()
