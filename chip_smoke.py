@@ -28,13 +28,18 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              with exact ties across them (kernels 2, 4 and 5, kernel 4's
              library call and kernel 3 at the batch's shape, a fraction of
              a millisecond each, timed over runs of back-to-back calls);
-             then one tiny round on the card
+             kernel 7 (GroupNorm with ReLU, and the residual at layer
+             3's norm3) at the 1080p stem and layer 3 and the 720p head
+             of 4 clips, against aten's f32 chain in bf16 ulps, its device
+             time over CUDA-graph replays against the bytes bound; then
+             one tiny round on the card
              against the same round on the CPU;
 4. main    — the flagship ModelConfig() (ResNet-101, bf16, random weights
              from a seed) through `Evaluator.run_session` on a synthetic
              480p sequence of 16 frames, 2 objects, 3 rounds; the launch
              counters, reset just before, must show 1 global- and 15
-             local-matching launches per round;
+             local-matching launches per round and one kernel-7 launch
+             per GroupNorm call;
    serve_int8 — the same session with `matching_backend="int8"`, fed
              uint8 frames: 1 int8 global-matching launch and 15 local ones
              per round, none of the other global kernels;
@@ -175,6 +180,7 @@ imports nothing of JAX. Phases (any failure exits non-zero):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -282,6 +288,35 @@ def stream_ms(fn, reps: int = 50, rounds: int = 5) -> float:
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """A call's device time with no host in the way: `reps` calls captured
+    in one CUDA graph, CUDA events around its replays, over the count;
+    median of `rounds`. For a kernel whose host work a call outlasts its
+    device time (kernel 7 at layer 3's sizes)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
@@ -893,6 +928,62 @@ def kernel_local_argmin(dev, hw: tuple[int, int], c_real: int, c: int,
                 bound_by=b_by, library_ms=None)
 
 
+def kernel_group_norm(dev, shape: tuple[int, int, int, int], groups: int,
+                      residual: bool, what: str):
+    """Kernel 7 at one of its sites: bf16 NCHW activations (mean 3, std
+    2), f32 scale and bias, ReLU and, where the site has one, the bf16
+    residual, against its plain version (aten's f32 chain: upcast,
+    F.group_norm, cast, add, ReLU): within one bf16 ulp on 99.9% of the
+    outputs, two at most. The bound is bytes: x and the residual read
+    once, y written once. The library call is aten's bf16 GroupNorm
+    alone (no upcast, no epilogue)."""
+    from cvpr2020_manet_tpu_torch.ops.group_norm_cuda import (
+        bf16_ulps, group_norm, group_norm_plain)
+    n, c, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = (3.0 + 2.0 * torch.randn(shape, device=dev, generator=g)).bfloat16()
+    weight = 1.0 + 0.5 * torch.randn(c, device=dev, generator=g)
+    bias = 0.5 * torch.randn(c, device=dev, generator=g)
+    r = torch.randn(shape, device=dev, generator=g).bfloat16() \
+        if residual else None
+    kernel_fn = lambda: group_norm(x, weight, bias, r, groups=groups,
+                                   eps=1e-6, relu=True)
+    got = kernel_fn()
+    want = group_norm_plain(x, weight, bias, r, groups, 1e-6, True)
+    normalized = group_norm_plain(x, weight, bias, None, groups, 1e-6,
+                                  False) if residual else None
+    ulps = bf16_ulps(got, want, normalized)
+    within1, worst = float((ulps <= 1).float().mean()), float(ulps.max())
+    err = float((got.float() - want.float()).abs().max())
+    require(within1 >= 0.999 and worst <= 2,
+            f"group_norm ({what}): {within1:.5f} within one bf16 ulp, "
+            f"{worst:g} at most")
+    ms, b2b_ms, call_ms = (graph_ms(kernel_fn), stream_ms(kernel_fn),
+                           time_ms(kernel_fn))
+    plain_ms = time_ms(lambda: group_norm_plain(x, weight, bias, r, groups,
+                                                1e-6, True), reps=5)
+    w16, b16 = weight.bfloat16(), bias.bfloat16()
+    library_ms = stream_ms(lambda: torch.nn.functional.group_norm(
+        x, groups, w16, b16, 1e-6), reps=20)
+    b_ms, b_by = bound(0.0, H100_BF16_FLOPS,
+                       nbytes(x, got, *([r] if residual else [])))
+    log(f"[kernels] group_norm ({what}) {n}x{c}x{h}x{w} G={groups} bf16"
+        f"{' + residual' if residual else ''} + ReLU: {within1:.6f} of "
+        f"outputs within one bf16 ulp of the plain version, {worst:g} at "
+        f"most (max|err| {err:.3g}); kernel pair {ms:.4f} ms of device "
+        f"time (CUDA-graph replays; {b2b_ms:.4f} ms over back-to-back "
+        f"calls, {call_ms:.4f} ms a single call), {100 * b_ms / ms:.1f}% of "
+        f"the bound {b_ms:.4f} ms by {b_by}; plain {plain_ms:.3f} ms; "
+        f"aten's bf16 GroupNorm alone {library_ms:.4f} ms")
+    return dict(name="group_norm", route="cuda",
+                source="cvpr2020_manet_tpu_torch/csrc/group_norm.cu",
+                replaces="none (Flax nn.GroupNorm, left to XLA)",
+                max_abs_err=err, ms=ms, b2b_ms=b2b_ms, call_ms=call_ms,
+                plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                within_one_ulp=within1, max_ulps=worst)
+
+
 def tiny_round_reference():
     """One tiny f32 round on the card against the same round on the CPU
     (the plain versions), same seeded weights and scribbles."""
@@ -936,12 +1027,15 @@ def main_path(dev, model, phase: str, global_kernel: str, uint8: bool,
               image_size=(480, 854), n_frames=16, rounds=3):
     """A model through the Evaluator's session loop; the launch counters,
     reset just before, must show 1 `global_kernel` and n_frames - 1 local
-    launches per round and no other kernel. -> the launches."""
+    launches per round, one kernel-7 launch per GroupNorm call of the
+    model (counted by forward hooks) and no other kernel. -> the
+    launches."""
     from cvpr2020_manet_tpu_torch.config import Config, EvalConfig
     from cvpr2020_manet_tpu_torch.data import SyntheticDataset
     from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
     from cvpr2020_manet_tpu_torch.interactive.session import InteractiveSession
     from cvpr2020_manet_tpu_torch.kernels import build
+    from cvpr2020_manet_tpu_torch.models.layers import GroupNorm
 
     cfg = Config(model=model.cfg, eval=EvalConfig(
         image_size=image_size, max_interactions=rounds))
@@ -961,13 +1055,23 @@ def main_path(dev, model, phase: str, global_kernel: str, uint8: bool,
 
     ev.start_sequence = timed_start
     masks_seen = []
+    norm_calls = [0]
+
+    def count_norm(*_):
+        norm_calls[0] += 1
+    hooks = [m.register_forward_hook(count_norm) for m in model.modules()
+             if isinstance(m, GroupNorm)]
     session = InteractiveSession(ds, max_interactions=rounds)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     t0 = time.perf_counter()
-    summary = ev.run_session(session,
-                             on_masks=lambda *a: masks_seen.append(a[-1]))
+    try:
+        summary = ev.run_session(
+            session, on_masks=lambda *a: masks_seen.append(a[-1]))
+    finally:
+        for h in hooks:
+            h.remove()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
@@ -986,9 +1090,13 @@ def main_path(dev, model, phase: str, global_kernel: str, uint8: bool,
         f"{summary['metric_at_threshold']:.6f}")
     log(f"[{phase}] launches: {launches} over {n_rounds} rounds "
         f"(per round: {global_kernel} {launches[global_kernel] / n_rounds:g}, "
-        f"local {launches['local_matching'] / n_rounds:g})")
+        f"local {launches['local_matching'] / n_rounds:g}); GroupNorm calls "
+        f"{norm_calls[0]} (the sequence start's encoder and the rounds' "
+        f"heads)")
     require(n_rounds == rounds, f"{n_rounds} rounds ran, {rounds} expected")
-    want = {global_kernel: n_rounds, "local_matching": (n_frames - 1) * n_rounds}
+    require(norm_calls[0] > 0, f"{phase}: no GroupNorm call")
+    want = {global_kernel: n_rounds, "local_matching": (n_frames - 1) * n_rounds,
+            NORM_KERNEL: norm_calls[0]}
     require(launches == {k: want.get(k, 0) for k in launches},
             f"{phase} launches {launches}, expected {want}")
     n_obj = ds.num_objects(ds.sequences()[0])
@@ -1006,13 +1114,54 @@ def main_path(dev, model, phase: str, global_kernel: str, uint8: bool,
     return launches
 
 
+# Kernel 7 (GroupNorm) launches once a bf16 norm with no backward to
+# record: every norm of the serving paths, none of the trainers'. The
+# launch checks hold its count to the GroupNorm calls that `norm_calls`
+# counts while the path runs, or, for an exported graph, to the
+# `manet::group_norm` nodes it ran; the trainers' to 0.
+NORM_KERNEL = "group_norm"
+
+
+@contextlib.contextmanager
+def norm_calls():
+    """Count, while open, the GroupNorm calls on bf16 input with grad mode
+    off (a global forward pre-hook on every module). -> a one-item list,
+    the count."""
+    from torch.nn.modules.module import register_module_forward_pre_hook
+    from cvpr2020_manet_tpu_torch.models.layers import GroupNorm
+    count = [0]
+
+    def hook(module, args):
+        if (isinstance(module, GroupNorm) and not torch.is_grad_enabled()
+                and args[0].dtype == torch.bfloat16):
+            count[0] += 1
+    handle = register_module_forward_pre_hook(hook)
+    try:
+        yield count
+    finally:
+        handle.remove()
+
+
+def with_norms(want: dict[str, int], norms: int) -> dict[str, int]:
+    """`want` (kernel -> launches) with `norms` kernel-7 launches."""
+    return {**want, NORM_KERNEL: norms} if norms else dict(want)
+
+
+def norm_nodes(exported) -> int:
+    """The `manet::group_norm` nodes of an exported program's graph."""
+    return sum(str(n.target) == "manet.group_norm.default"
+               for n in exported.graph.nodes if n.op == "call_function")
+
+
 def launches_delta(fn):
-    """Run fn(); -> (its result, the kernel launches it made)."""
+    """Run fn(); -> (its result, the kernel launches it made, its GroupNorm
+    calls that take kernel 7 as `norm_calls` counts them)."""
     from cvpr2020_manet_tpu_torch.kernels import build
     before = dict(build.LAUNCHES)
-    out = fn()
+    with norm_calls() as norms:
+        out = fn()
     return out, {k: v - before[k] for k, v in build.LAUNCHES.items()
-                 if v != before[k]}
+                 if v != before[k]}, norms[0]
 
 
 # --------------------------------------------------------------------- #
@@ -1099,7 +1248,8 @@ def davis_cli(argv, stop_after_first_item=False):
     build.reset_launches()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        with norm_calls() as norms, contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
             eval_davis.main(argv)
     except _StopAfterFirstItem:
         run["stopped"] = True
@@ -1109,6 +1259,7 @@ def davis_cli(argv, stop_after_first_item=False):
     torch.cuda.synchronize()
     run["wall_s"] = time.perf_counter() - t0
     run["launches"] = dict(build.LAUNCHES)
+    run["norms"] = norms[0]
     run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     run["stderr"] = err.getvalue()
     lines = out.getvalue().strip().splitlines()
@@ -1119,12 +1270,15 @@ def davis_cli(argv, stop_after_first_item=False):
 def check_davis_launches(name, run, global_kernel, buckets):
     """Each sequence's rounds in its frame bucket; 1 `global_kernel` launch
     per round and bucket - 1 local ones (the sweep over the padded
-    bucket), no other kernel."""
+    bucket), one of kernel 7 per GroupNorm call, no other kernel."""
     for seq, _, _, tb in run["rounds"]:
         require(tb == buckets[seq], f"davis {name}: {seq} ran in frame "
                 f"bucket {tb}, expected {buckets[seq]}")
-    want = {global_kernel: len(run["rounds"]),
-            "local_matching": sum(tb - 1 for *_, tb in run["rounds"])}
+    require(run["norms"] > 0, f"davis {name}: no GroupNorm call")
+    want = with_norms({global_kernel: len(run["rounds"]),
+                       "local_matching": sum(tb - 1
+                                             for *_, tb in run["rounds"])},
+                      run["norms"])
     got = run["launches"]
     log(f"[davis] {name}: launches {got} over {len(run['rounds'])} rounds")
     require(got == {k: want.get(k, 0) for k in got},
@@ -1390,7 +1544,7 @@ def reference_leg(davis: dict, frames: str) -> float:
     build.reset_launches()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out):
+        with norm_calls() as norms, contextlib.redirect_stdout(out):
             reference_style_eval.main([
                 "--davis_root", davis["root"], "--rounds", str(DAVIS_ROUNDS),
                 "--report", report])
@@ -1402,6 +1556,7 @@ def reference_leg(davis: dict, frames: str) -> float:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run["launches"] = dict(build.LAUNCHES)
+    run["norms"] = norms[0]
     peak = torch.cuda.max_memory_allocated() / 2**30
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     cli = davis["run"]
@@ -1500,11 +1655,15 @@ def stream_phase(dev, model_i8, model_f32, image_size=(1080, 1920),
     s = StreamingIVOS(cfg, model_i8, device=dev)
     s.reset(2)
     per_observe = {"global_matching_int8": 1, "local_matching": 1}
+    norms_in_all = [0]
 
     def observe(frame, pipelined=False):
-        out, n = launches_delta(lambda: s.observe_async(frame) if pipelined
-                                else s.observe(frame))
-        require(n == per_observe, f"stream observe launched {n}")
+        out, n, norms = launches_delta(
+            lambda: s.observe_async(frame) if pipelined else s.observe(frame))
+        # observe_async enqueues the whole frame before it returns
+        require(norms > 0 and n == with_norms(per_observe, norms),
+                f"stream observe launched {n}, {norms} GroupNorm calls")
+        norms_in_all[0] += norms
         return out
 
     torch.cuda.synchronize()
@@ -1514,8 +1673,10 @@ def stream_phase(dev, model_i8, model_f32, image_size=(1080, 1920),
     for f in range(corrections):
         pred = observe(u8[f])
         scr = robot.scribble_frame(pred, gt[f], 2, f, n_frames, seq)
-        mask, n = launches_delta(lambda: s.correct(scr.to_json()))
-        require(n == {}, f"stream correct launched {n}")
+        mask, n, norms = launches_delta(lambda: s.correct(scr.to_json()))
+        require(n == with_norms({}, norms),
+                f"stream correct launched {n}, {norms} GroupNorm calls")
+        norms_in_all[0] += norms
         require(mask.shape == gt.shape[1:] and mask.max() <= 2,
                 "correction mask")
         pages.append(s.live_pages())
@@ -1545,8 +1706,10 @@ def stream_phase(dev, model_i8, model_f32, image_size=(1080, 1920),
                 and 0 <= m.min() and m.max() <= 2, "stream mask")
     labelled = float(np.mean([(m > 0).mean() for m in masks]))
     n_obs = corrections + 2 * timed + len(yuv)
-    require(launches == {k: per_observe.get(k, 0) * n_obs for k in launches},
-            f"stream launches {launches}")
+    want = with_norms({k: v * n_obs for k, v in per_observe.items()},
+                      norms_in_all[0])
+    require(launches == {k: want.get(k, 0) for k in launches},
+            f"stream launches {launches}, expected {want}")
     log(f"[stream] {image_size[0]}x{image_size[1]} (padded {s.hp}x{s.wp}), "
         f"2 objects, int8, {s.live_pages()} live pages of {s.hh * s.ww} rows: "
         f"observe p50 {statistics.median(sync_ms):.1f} ms per frame "
@@ -1565,10 +1728,11 @@ def stream_phase(dev, model_i8, model_f32, image_size=(1080, 1920),
     for f in u8[1:3]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m, n = launches_delta(lambda: s32.observe(f))
+        m, n, norms = launches_delta(lambda: s32.observe(f))
         f32_ms.append((time.perf_counter() - t0) * 1e3)
-        require(n == {"global_matching": 1, "local_matching": 1},
-                f"f32 stream observe launched {n}")
+        require(n == with_norms({"global_matching": 1, "local_matching": 1},
+                                norms),
+                f"f32 stream observe launched {n}, {norms} GroupNorm calls")
         require(m.shape == gt.shape[1:], "f32 stream mask")
     log(f"[stream] f32 memory (bf16 queries matched in f32: kernel 1's f32 "
         f"variant), 1 live page: observe {', '.join(f'{t:.1f}' for t in f32_ms)}"
@@ -1747,10 +1911,13 @@ def cp_stream(dev, model, mesh, image_size=(1080, 1920), corrections=3,
         for name, s in streams.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out[name], n = launches_delta(lambda: getattr(s, call)(arg))
+            out[name], n, norms = launches_delta(
+                lambda: getattr(s, call)(arg))
             ms[name] = (time.perf_counter() - t0) * 1e3
-            want = per_observe[name] if call == "observe" else {}
-            require(n == want, f"{name} stream {call} launched {n}")
+            want = with_norms(per_observe[name] if call == "observe" else {},
+                              norms)
+            require(n == want, f"{name} stream {call} launched {n}, "
+                    f"{norms} GroupNorm calls")
         require(np.array_equal(out["single"], out["cp"]),
                 f"cp stream {call}: masks differ from the single-device "
                 "stream's")
@@ -1823,12 +1990,16 @@ def cp_eval(dev, model, mesh, image_size=(480, 854), n_frames=16, rounds=3,
                 torch.cuda.synchronize()
                 build.reset_launches()
                 t0 = time.perf_counter()
-                masks = ev.run_round(st, scribbles[r], gt.shape[1:], n_obj)
+                with norm_calls() as norms:
+                    masks = ev.run_round(st, scribbles[r], gt.shape[1:],
+                                         n_obj)
                 walls.append((time.perf_counter() - t0) * 1e3)
                 launches = dict(build.LAUNCHES)
-                require(launches == {k: want.get(k, 0) for k in launches},
+                want_r = with_norms(want, norms[0])
+                require(norms[0] > 0 and launches == {
+                    k: want_r.get(k, 0) for k in launches},
                         f"cp eval ({name}, {segs} segments) round {r} "
-                        f"launched {launches}, expected {want}")
+                        f"launched {launches}, expected {want_r}")
                 per_round.append(masks)
             results[(name, segs)] = per_round
             log(f"[cp] eval {image_size[0]}x{image_size[1]}, {n_frames} "
@@ -1944,7 +2115,7 @@ def cp_artifact(dev) -> None:
             refused = str(e)
         require(refused is not None and "exported for a 1 x 4" in refused,
                 f"a {n // 2}-member mesh was not refused: {refused}")
-    live, launches = launches_delta(lambda: cp_match_flat(*args, mesh))
+    live, launches, _ = launches_delta(lambda: cp_match_flat(*args, mesh))
     torch.cuda.synchronize()
     require(launches == {"global_matching": n},
             f"the live cp call launched {launches}")
@@ -2023,11 +2194,13 @@ def batch_phase(dev, model, ingest: str, batch=4, n_frames=16,
                  "local_matching": batch * (n_frames - 1)}
     prop.propagate(*data[0])                       # warm-up
     timed = data[1:]
-    (serial_s, pipe_s, labels), n = launches_delta(
+    (serial_s, pipe_s, labels), n, norms = launches_delta(
         lambda: timed_batches(prop, timed))
     runs = 2 * len(timed)                          # serial and pipelined
-    require(n == {k: v * runs for k, v in per_batch.items()},
-            f"{runs} batches launched {n}, expected {per_batch} each")
+    require(norms > 0 and n == with_norms(
+        {k: v * runs for k, v in per_batch.items()}, norms),
+            f"{runs} batches launched {n}, expected {per_batch} each and "
+            f"{norms} of kernel 7")
     for (frames, first, _), lab in zip(timed, labels):
         require(lab.shape == frames.shape[:4] and lab.max() <= 2,
                 "batch labels")
@@ -2141,14 +2314,16 @@ def export_child(path: str, out_path: str) -> None:
     probs, mem, times = bundle_loop(bundle, frames, pos, dev)
     launches = {k: v for k, v in build.LAUNCHES.items() if v}
     torch.save({"probs": probs.cpu(), "mem": mem.cpu()}, out_path)
-    # each graph's operations, and of them the metadata asserts that
-    # torch.export puts beside every dtype cast: the host runs each one
+    # each graph's operations, of them the metadata asserts that
+    # torch.export puts beside every dtype cast (the host runs each one),
+    # and its GroupNorm ops (kernel 7)
     nodes = {}
     for name in bundle.names:
         ops = [str(n.target) for n in bundle[name].exported.graph.nodes
                if n.op == "call_function"]
         nodes[name] = [len(ops),
-                       ops.count("aten._assert_tensor_metadata.default")]
+                       ops.count("aten._assert_tensor_metadata.default"),
+                       norm_nodes(bundle[name].exported)]
     print(json.dumps({
         "load_s": load_s, "launches": launches, "nodes": nodes,
         "p50_ms": {k: statistics.median(v) for k, v in times.items()},
@@ -2253,11 +2428,15 @@ def export_phase(dev, model, model_i8) -> None:
     8-object bucket: the default and the int8 bundle and the fused round,
     each written by the export CLI on the card with --check; each bundle
     served from a fresh process over EXPORT_FRAMES frames (15 propagates:
-    15 launches of the global kernel and 15 of kernel 2, no model code
-    loaded) and held against the same loop on the live module; then a
-    tiny bundle exported on the CPU, moved to the card."""
+    15 launches of the global kernel and 15 of kernel 2, one of kernel 7
+    per GroupNorm node run, no model code loaded) and held against the
+    same loop on the live module; then tiny bundles exported on the CPU
+    (f32 through the CLI, and bf16, whose norms the graph holds as
+    `manet::group_norm`), moved to the card."""
+    import dataclasses
     import tempfile
-    from cvpr2020_manet_tpu_torch.kernels import build
+    from cvpr2020_manet_tpu_torch.config import tiny_test_config
+    from cvpr2020_manet_tpu_torch.models import MANet
     from cvpr2020_manet_tpu_torch.utils import export as ex
     t_phase = time.perf_counter()
     dispatch_cost(dev)
@@ -2290,8 +2469,11 @@ def export_phase(dev, model, model_i8) -> None:
                     f"bundle loop process ({backend}): {proc.stderr[-3000:]}")
             child = json.loads(proc.stdout.strip().splitlines()[-1])
             child_s = time.perf_counter() - t
+            norms = sum(child["nodes"][e][2] * k
+                        for e, k in child["calls"].items())
+            require(norms > 0, f"bundle ({backend}): no GroupNorm node ran")
             want = {kernel: EXPORT_FRAMES - 1,
-                    "local_matching": EXPORT_FRAMES - 1}
+                    "local_matching": EXPORT_FRAMES - 1, NORM_KERNEL: norms}
             require(child["launches"] == want,
                     f"bundle loop ({backend}) launched {child['launches']}, "
                     f"expected {want}")
@@ -2320,8 +2502,8 @@ def export_phase(dev, model, model_i8) -> None:
                 + ", ".join(f"{k} {v:.2f} (live {live_p50[k]:.2f}) x"
                             f"{child['calls'][k]}"
                             for k, v in child["p50_ms"].items())
-                + f"; graph operations (of them metadata asserts) "
-                f"{child['nodes']}"
+                + f"; graph operations (of them metadata asserts, "
+                f"GroupNorm ops) {child['nodes']}"
                 + f"; checksums {child['checksums']}; against the live "
                 f"module max|dprob|={err_p:.3g}, max|dmem|={err_m:.3g} "
                 f"(tol {TOL_EXPORT})")
@@ -2338,9 +2520,12 @@ def export_phase(dev, model, model_i8) -> None:
             model, EXPORT_SIZE, o - 1, pad_to=16))
         img = torch.from_numpy(frames[0]).to(dev)
         posd = torch.from_numpy(pos).to(dev)
-        got, n = launches_delta(lambda: art(img, posd, torch.zeros_like(posd)))
-        require(n == {"global_matching": 1, "local_matching": 1},
-                f"the fused round launched {n}")
+        got, n, _ = launches_delta(
+            lambda: art(img, posd, torch.zeros_like(posd)))
+        want = {"global_matching": 1, "local_matching": 1,
+                NORM_KERNEL: norm_nodes(art.exported)}
+        require(want[NORM_KERNEL] > 0 and n == want,
+                f"the fused round launched {n}, expected {want}")
         with torch.no_grad():
             err = (got - fn(img, posd, torch.zeros_like(posd))).abs().max()
         require(err.item() <= TOL_EXPORT, f"fused round vs live: {err}")
@@ -2350,32 +2535,52 @@ def export_phase(dev, model, model_i8) -> None:
             f"{load_s:.2f} s; one call launched {n}; max|dprob| against "
             f"the live module {err.item():.3g} (tol {TOL_EXPORT})")
 
-        # a tiny bundle exported on the CPU (a build host without a card),
-        # moved to the card by move_to_device_pass
+        # tiny bundles exported on the CPU (a build host without a card),
+        # moved to the card by move_to_device_pass: f32 through the CLI,
+        # and bf16, whose norms the graph holds as manet::group_norm
         path = os.path.join(tmp, "tiny_cpu.ivosx")
         export_cli_timed(["--out", path, "--tiny", "--bundle", "--device",
                           "cpu"])
-        on_cpu = ex.load_bundle(path)
-        on_card = ex.load_bundle(path, device=dev)
-        g = torch.Generator().manual_seed(4)
-        args = [torch.randn(shape, generator=g).to(getattr(torch, dt))
-                for shape, dt in on_cpu["propagate"].manifest["in_avals"]]
-        o_tiny = args[3].shape[-1]
-        args[3] = torch.nn.functional.one_hot(args[3].argmax(-1),
-                                              o_tiny).float()
-        want = on_cpu["propagate"](*args)
-        got, n = launches_delta(
-            lambda: on_card["propagate"](*[a.to(dev) for a in args]))
-        torch.cuda.synchronize()
-        require(n == {"global_matching": 1, "local_matching": 1},
-                f"the moved bundle launched {n}")
-        err = max((a.cpu() - b).abs().max().item() for a, b in zip(got, want))
-        # the tiny round's card-vs-CPU tolerance
-        require(err <= TOL_ROUND_PROBS, f"moved bundle vs CPU: {err}")
-        log(f"[export] tiny bundle exported on the CPU, moved to {dev}: "
-            f"propagate launched {n}; max|d| against the CPU {err:.3g} "
-            f"(tol {TOL_ROUND_PROBS}: cuDNN and the kernels sum in other "
-            f"orders)")
+        path16 = os.path.join(tmp, "tiny_cpu_bf16.ivosx")
+        tiny = tiny_test_config()
+        ex.save_bundle(ex.export_serving_bundle(
+            MANet(dataclasses.replace(tiny.model, dtype="bfloat16"),
+                  device="cpu", seed=0).eval(), tiny.eval.image_size,
+            tiny.model.max_objects, pad_to=tiny.eval.pad_to), path16)
+        for what, p in (("f32", path), ("bf16", path16)):
+            on_cpu = ex.load_bundle(p)
+            on_card = ex.load_bundle(p, device=dev)
+            g = torch.Generator().manual_seed(4)
+            args = [torch.randn(shape, generator=g).to(getattr(torch, dt))
+                    for shape, dt in on_cpu["propagate"].manifest["in_avals"]]
+            o_tiny = args[3].shape[-1]
+            args[3] = torch.nn.functional.one_hot(args[3].argmax(-1),
+                                                  o_tiny).float()
+            want_out = on_cpu["propagate"](*args)
+            got, n, _ = launches_delta(
+                lambda: on_card["propagate"](*[a.to(dev) for a in args]))
+            torch.cuda.synchronize()
+            norms = norm_nodes(on_card["propagate"].exported)
+            require((norms > 0) == (what == "bf16")
+                    and n == with_norms({"global_matching": 1,
+                                         "local_matching": 1}, norms),
+                    f"the moved {what} bundle launched {n}, {norms} "
+                    f"GroupNorm nodes")
+            err = max((a.cpu().float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want_out))
+            if what == "f32":
+                # the tiny round's card-vs-CPU tolerance
+                require(err <= TOL_ROUND_PROBS, f"moved bundle vs CPU: {err}")
+            else:
+                require(all(bool(torch.isfinite(a).all()) for a in got),
+                        "moved bf16 bundle: finite outputs")
+            log(f"[export] tiny {what} bundle exported on the CPU, moved to "
+                f"{dev}: propagate launched {n}; max|d| against the CPU "
+                f"{err:.3g}"
+                + (f" (tol {TOL_ROUND_PROBS}: cuDNN and the kernels sum in "
+                   f"other orders)" if what == "f32" else
+                   " (bf16 convolutions on both: not gated; the CPU tests "
+                   "hold the graph to the live module bit for bit)"))
     log(f"[export] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2429,7 +2634,7 @@ def tools_phase(kind: str) -> None:
             out = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
-                rc, launches = launches_delta(lambda: mod.main(argv))
+                rc, launches, _ = launches_delta(lambda: mod.main(argv))
             wall = time.perf_counter() - t0
             lines = out.getvalue().strip().splitlines()
             what = " ".join([name, *argv])
@@ -2497,7 +2702,8 @@ def run_trainer(name: str, trainer, cfg, steps: int,
 
 def check_steps(name: str, losses, launches, per_step: dict[str, int]):
     """Finite losses, and over their steps `per_step` launches of each
-    argmin kernel a step and none of the serving kernels."""
+    argmin kernel a step and none of the serving kernels: kernel 7 none
+    either, since every norm of a training step records a backward."""
     require(all(np.isfinite(losses)), f"{name}: a loss is not finite")
     for kernel, n in launches.items():
         want = per_step.get(kernel, 0) * len(losses)
@@ -3100,10 +3306,12 @@ QUALITY_ABLATE_KEYS = ["ablate_per_round_jf", "ablate_auc",
 def quality_cli(argv) -> dict:
     """`train_eval_flagship.main(argv)` as `python -m
     cvpr2020_manet_tpu_torch.train_eval_flagship` runs it, the launch
-    counters reset just before; each trainer step's and each eval round's
-    launches recorded. -> dict: its exit code, its JSON line, its verdict
-    line, each stage's record (`train`'s), the launches of each stage-1
-    step, stage-2 step and round, the run's launches in all, its wall."""
+    counters reset just before; each trainer step's, each sequence start's
+    and each eval round's launches recorded. -> dict: its exit code, its
+    JSON line, its verdict line, each stage's record (`train`'s), the
+    launches of each stage-1 step, stage-2 step, start and round, the
+    GroupNorm calls of each start and round (`norms`), the run's launches
+    in all, its wall."""
     import contextlib
     import io
 
@@ -3113,12 +3321,16 @@ def quality_cli(argv) -> dict:
     from cvpr2020_manet_tpu_torch.engine.train_stage2 import Stage2Trainer
     from cvpr2020_manet_tpu_torch.kernels import build
 
-    run = {"stage1": [], "stage2": [], "rounds": [], "records": []}
+    run = {"stage1": [], "stage2": [], "starts": [], "rounds": [],
+           "records": [], "norms": {"starts": [], "rounds": []}}
 
     def counted(real, key):
         def method(self, *args, **kw):
-            out, launched = launches_delta(lambda: real(self, *args, **kw))
+            out, launched, norms = launches_delta(
+                lambda: real(self, *args, **kw))
             run[key].append(launched)
+            if key in run["norms"]:
+                run["norms"][key].append(norms)
             return out
         return method
 
@@ -3129,6 +3341,7 @@ def quality_cli(argv) -> dict:
 
     patched = ((Trainer, "train_step", "stage1"),
                (Stage2Trainer, "train_step", "stage2"),
+               (Evaluator, "start_sequence", "starts"),
                (Evaluator, "run_round", "rounds"))
     reals = [getattr(cls, name) for cls, name, _ in patched]
     real_train = tef.train
@@ -3166,16 +3379,24 @@ def summed_launches(deltas) -> dict[str, int]:
 
 
 def check_quality_launches(name, run, global_kernel, rounds, per_round):
-    """Each recorded step and round launched its kernels as asserted, and
-    nothing launched outside them."""
-    total = summed_launches(run["stage1"] + run["stage2"] + run["rounds"])
+    """Each recorded step, start and round launched its kernels as
+    asserted (a start kernel 7 alone, once a GroupNorm call), and nothing
+    launched outside them."""
+    total = summed_launches(run["stage1"] + run["stage2"] + run["starts"]
+                            + run["rounds"])
     require(total == run["launches"], f"quality {name}: launches outside "
             f"the steps and rounds: {run['launches']} vs {total}")
     require(len(run["rounds"]) == rounds, f"quality {name}: "
             f"{len(run['rounds'])} rounds, {rounds} expected")
-    for launched in run["rounds"]:
-        require(launched == {global_kernel: 1, "local_matching": per_round},
-                f"quality {name}: a round launched {launched}")
+    for launched, norms in zip(run["starts"], run["norms"]["starts"]):
+        require(norms > 0 and launched == with_norms({}, norms),
+                f"quality {name}: a start launched {launched}, {norms} "
+                f"GroupNorm calls")
+    for launched, norms in zip(run["rounds"], run["norms"]["rounds"]):
+        require(norms > 0 and launched == with_norms(
+            {global_kernel: 1, "local_matching": per_round}, norms),
+                f"quality {name}: a round launched {launched}, {norms} "
+                f"GroupNorm calls")
 
 
 def quality_phase(dev) -> None:
@@ -3409,6 +3630,20 @@ def main() -> int:
                                   "bound_ms", "bound_by", "library_ms",
                                   "splits", "epilogue_floor_ms")
              if k in page}))
+    # kernel 7 at the 1080p stream's stem and layer 3 (norm3, with the
+    # residual) and at the 720p batch's head over 4 clips
+    norms = [kernel_group_norm(dev, (1, 64, 544, 960), 32, False,
+                               "1080p stem"),
+             kernel_group_norm(dev, (1, 1024, 68, 120), 32, True,
+                               "1080p layer 3 norm3"),
+             kernel_group_norm(dev, (4, 256, 180, 320), 32, False,
+                               "720p head, 4 clips")]
+    kernels.append(norms[0])
+    for row in norms[1:]:
+        log("[kernels] group_norm: " + json.dumps(
+            {k: row[k] for k in ("max_abs_err", "max_ulps", "ms", "b2b_ms",
+                                 "call_ms", "plain_ms", "bound_ms",
+                                 "library_ms")}))
     # the batch engine's launch: one 480p frame's queries against its
     # clip's frame 0, where the query tiles alone do not fill the card
     batch_launch = kernel_global_int8(

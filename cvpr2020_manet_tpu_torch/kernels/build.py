@@ -38,7 +38,8 @@ KERNELS = {"global_matching": "global_matching",
            "global_matching_int8": "global_matching",
            "local_matching": "local_matching",
            "local_matching_argmin": "local_matching",
-           "ring_matching": "ring_matching"}
+           "ring_matching": "ring_matching",
+           "group_norm": "group_norm"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -52,14 +52,14 @@ class ASPP(nn.Module):
         self.n_rates = len(rates)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        branches = [F.relu(self.norm[i](self.conv[i](x)))
+        branches = [self.norm[i](self.conv[i](x), relu=True)
                     for i in range(self.n_rates + 1)]
         pooled = x.mean(dim=(2, 3), keepdim=True)
         p = self.n_rates + 1
-        pooled = F.relu(self.norm[p](self.conv[p](pooled)))
+        pooled = self.norm[p](self.conv[p](pooled), relu=True)
         branches.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
         y = self.conv[p + 1](torch.cat(branches, dim=1))
-        return F.relu(self.norm[p + 1](y))
+        return self.norm[p + 1](y, relu=True)
 
 
 class Encoder(nn.Module):
@@ -102,10 +102,10 @@ class Encoder(nn.Module):
         (feature, embedding)."""
         cfg = self.cfg
         y = resize_bilinear_axes(y, tuple(low.shape[2:]), 2, 3)
-        ll = F.relu(self.low_level_norm(self.low_level_proj(low)))
+        ll = self.low_level_norm(self.low_level_proj(low), relu=True)
         y = torch.cat([y, ll], dim=1)
-        y = F.relu(self.decoder_norm0(self.decoder_conv0(y)))
-        feature = F.relu(self.decoder_norm1(self.decoder_conv1(y)))
+        y = self.decoder_norm0(self.decoder_conv0(y), relu=True)
+        feature = self.decoder_norm1(self.decoder_conv1(y), relu=True)
         emb = self.embedding_head(feature)
         pad = cfg.embedding_dim_padded - cfg.embedding_dim
         if pad > 0:

@@ -39,7 +39,7 @@ class ConvStack(nn.Module):
                 x = pre0.to(self.dtype)
             else:
                 x = getattr(self, f"conv{i}")(x)
-            x = F.relu(getattr(self, f"norm{i}")(x))
+            x = getattr(self, f"norm{i}")(x, relu=True)
         return x
 
 

@@ -13,6 +13,14 @@ purpose:
   and cast the result back to the input dtype; the statistics use Flax's
   fast variance E[x^2] - E[x]^2 clipped at 0. `FrozenAffine` (folded
   pretrained BN) multiplies and adds in the compute dtype, as JAX's does.
+  Every norm takes the call site's tail, `norm(x, residual=None,
+  relu=False)`: the residual added in the output dtype, then ReLU.
+  `GroupNorm` sends bf16 calls with no autograd to record (the serving
+  paths, under `torch.inference_mode`) to the op `manet::group_norm`
+  (`ops/group_norm_cuda.py`): on the card kernel 7, which does the norm
+  and the tail in one kernel pair, on the CPU the same plain arithmetic,
+  so a graph exported on either holds the op. f32 and the trainers'
+  autograd calls take `F.group_norm` as before.
 
 Modules work in NCHW. `resize_bilinear` / `resize_nearest` take the JAX
 package's layout (spatial axes third- and second-to-last) and implement
@@ -31,6 +39,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cvpr2020_manet_tpu_torch.ops.group_norm_cuda import group_norm
 
 
 class Conv(nn.Module):
@@ -55,7 +65,37 @@ class Conv(nn.Module):
                         self.padding, self.dilation)
 
 
-class GroupNorm(nn.Module):
+class _Norm(nn.Module):
+    """A norm followed by its call site's tail: `forward(x, residual=None,
+    relu=False)` is relu(normalize(x) + residual), the residual added in
+    the output dtype."""
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
+                relu: bool = False) -> torch.Tensor:
+        y = self.normalize(x)
+        if residual is not None:
+            y = y + residual
+        return F.relu(y) if relu else y
+
+
+def group_norm_takes_op(x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, residual: torch.Tensor | None,
+                        relu: bool) -> bool:
+    """Whether a GroupNorm call goes to `manet::group_norm`: a bf16 input,
+    a tail the kernel has (a residual only with ReLU), and grad disabled
+    or nothing of the call requiring grad (no backward to record). The
+    device does not enter: the op's CPU registration is the plain path."""
+    if x.dtype != torch.bfloat16 or (residual is not None and not relu):
+        return False
+    return not torch.is_grad_enabled() or not any(
+        t is not None and t.requires_grad
+        for t in (x, weight, bias, residual))
+
+
+class GroupNorm(_Norm):
     """Flax `nn.GroupNorm` semantics on NCHW input (eps 1e-6, f32 math)."""
 
     FLAX_NAME = "GroupNorm"
@@ -66,9 +106,16 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
         return F.group_norm(x.float(), self.groups, self.weight, self.bias,
                             self.eps).to(x.dtype)
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
+                relu: bool = False) -> torch.Tensor:
+        if group_norm_takes_op(x, self.weight, self.bias, residual, relu):
+            return group_norm(x, self.weight, self.bias, residual,
+                              groups=self.groups, eps=self.eps, relu=relu)
+        return super().forward(x, residual, relu)
 
 
 def _chw(t: torch.Tensor) -> torch.Tensor:
@@ -82,7 +129,7 @@ def _normalize(x32, mean, var, scale, bias, eps: float) -> torch.Tensor:
     return (x32 - mean) * (torch.rsqrt(var + eps) * scale) + bias
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(_Norm):
     """Flax `nn.BatchNorm(use_running_average=False, momentum=0.99)` on
     NCHW input: the moments of the batch over N, H and W, in training and
     in eval alike (the JAX model's `make_norm('bn')`). Every call updates
@@ -122,7 +169,7 @@ class BatchNorm(nn.Module):
                                        n]), group=group)
         return sums[0] / sums[2], sums[1] / sums[2]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         mean, mean2 = self._moments(x32)
         var = torch.clamp(mean2 - mean.square(), min=0.0)
@@ -134,7 +181,7 @@ class BatchNorm(nn.Module):
                           _chw(self.bias), self.eps).to(x.dtype)
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(_Norm):
     """Flax `nn.LayerNorm` over the channel axis at each pixel (NCHW dim 1):
     eps 1e-6, f32 statistics and affine, the result in the input dtype."""
 
@@ -146,7 +193,7 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         mean = x32.mean(1, keepdim=True)
         var = torch.clamp(x32.square().mean(1, keepdim=True) - mean.square(),
@@ -155,7 +202,7 @@ class LayerNorm(nn.Module):
                           self.eps).to(x.dtype)
 
 
-class FrozenAffine(nn.Module):
+class FrozenAffine(_Norm):
     """Frozen BatchNorm as a per-channel affine, y = x * scale + bias, the
     JAX package's `FrozenAffine`: pretrained BN statistics folded into
     (scale, bias) (`utils/pretrained.py`). Scale and bias are cast to the
@@ -170,7 +217,7 @@ class FrozenAffine(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         return (x * _chw(self.weight.to(dt))
                 + _chw(self.bias.to(dt))).to(x.dtype)

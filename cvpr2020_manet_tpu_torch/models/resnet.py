@@ -43,12 +43,11 @@ class Bottleneck(nn.Module):
             self.shortcut = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = F.relu(self.norm2(self.conv2(y)))
-        y = self.norm3(self.conv3(y))
+        y = self.norm1(self.conv1(x), relu=True)
+        y = self.norm2(self.conv2(y), relu=True)
         residual = x if self.shortcut is None \
             else self.shortcut_norm(self.shortcut(x))
-        return F.relu(y + residual)
+        return self.norm3(self.conv3(y), residual=residual, relu=True)
 
 
 class ResNetBackbone(nn.Module):
@@ -89,7 +88,7 @@ class ResNetBackbone(nn.Module):
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) -> (B, width, H/4, W/4): 7x7/2 conv, norm, relu,
         3x3/2 max-pool."""
-        x = F.relu(self.stem_norm(self.stem_conv(x.to(self.dtype))))
+        x = self.stem_norm(self.stem_conv(x.to(self.dtype)), relu=True)
         return F.max_pool2d(x, 3, stride=2, padding=1)
 
     def stage(self, index: int, x: torch.Tensor) -> torch.Tensor:

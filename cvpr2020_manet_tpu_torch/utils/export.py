@@ -28,7 +28,9 @@ that uses it.
 
 The matching kernels are the custom ops `manet::global_matching`,
 `manet::global_matching_int8` and `manet::local_matching`
-(`ops/global_matching_cuda.py`, `ops/local_matching_cuda.py`): each
+(`ops/global_matching_cuda.py`, `ops/local_matching_cuda.py`), and a
+graph exported on the CPU or the card holds its bf16 norms as
+`manet::group_norm` (`ops/group_norm_cuda.py`): each
 exported graph holds them as nodes, which launch the hand-written kernels
 on the card and run the plain versions on the CPU. Importing this module
 registers them, and it imports `models/` only inside the functions that
@@ -65,7 +67,7 @@ from torch.export.passes import move_to_device_pass
 from cvpr2020_manet_tpu_torch.config import check_params_only
 # registers the manet::* custom ops that exported graphs call
 from cvpr2020_manet_tpu_torch.ops import (  # noqa: F401
-    global_matching_cuda, local_matching_cuda)
+    global_matching_cuda, group_norm_cuda, local_matching_cuda)
 
 _MAGIC = b"IVOSX1\n"
 FORMAT = "ivosx-torch/1"
