@@ -81,9 +81,9 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              bit-identical (and over distinct cards when there are two);
              the 1080p f32 stream with `cp_mesh` (4 kernel-1 launches per
              observe, masks equal to the single-device stream's); the
-             flagship at 480p with stacked memory, monolithic and in 4
-             segments, single-device and with `cp_mesh`: equal masks
-             every round, 1 / 4 kernel-1 launches per matching call; the
+             flagship at 480p with stacked memory, single-device and
+             with `cp_mesh`: equal masks every round, 1 / 4 kernel-1
+             launches a round (one matching call); the
              cp matching artifact (`utils/export.export_cp_matching`) at
              the cp stream observe's matching over 4 members: exported,
              saved with its mesh, loaded in a fresh process, bit-equal to
@@ -1945,15 +1945,13 @@ def cp_stream(dev, model, mesh, image_size=(1080, 1920), corrections=3,
         f"{n_frames} observes and {corrections} corrections of each stream")
 
 
-def cp_eval(dev, model, mesh, image_size=(480, 854), n_frames=16, rounds=3,
-            segments=4) -> None:
-    """The flagship at 480p with stacked memory (3 slots), monolithic and
-    in `segments` spans, single-device and with `cp_mesh`, on the same
-    scribbles (the robot's on the first run's masks): equal masks every
-    round; per round 1 kernel-1 launch per matching call single-device
-    and one per member with the mesh (a matching call per span), and
-    n_frames - 1 local ones."""
-    import dataclasses
+def cp_eval(dev, model, mesh, image_size=(480, 854), n_frames=16,
+            rounds=3) -> None:
+    """The flagship at 480p with stacked memory (3 slots), single-device
+    and with `cp_mesh`, on the same scribbles (the robot's on the first
+    run's masks): equal masks every round; per round one matching call,
+    so 1 kernel-1 launch single-device and one per member with the mesh,
+    and n_frames - 1 local ones."""
     from cvpr2020_manet_tpu_torch.config import Config, EvalConfig
     from cvpr2020_manet_tpu_torch.data import SyntheticDataset
     from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
@@ -1961,8 +1959,9 @@ def cp_eval(dev, model, mesh, image_size=(480, 854), n_frames=16, rounds=3,
         InteractiveScribblesRobot)
     from cvpr2020_manet_tpu_torch.kernels import build
 
-    base = EvalConfig(image_size=image_size, max_interactions=rounds,
-                      matching_memory="stacked")
+    cfg = Config(model=model.cfg, eval=EvalConfig(
+        image_size=image_size, max_interactions=rounds,
+        matching_memory="stacked"))
     ds = SyntheticDataset(image_size=image_size, num_frames=n_frames,
                           num_objects=2, num_sequences=1, scribble_sets=1)
     seq = ds.sequences()[0]
@@ -1971,51 +1970,42 @@ def cp_eval(dev, model, mesh, image_size=(480, 854), n_frames=16, rounds=3,
     members = len(mesh.context_devices)
     robot = InteractiveScribblesRobot()
     scribbles, results = [], {}
-    for segs in (1, segments):
-        for name, cp_mesh in (("single", None), ("cp", mesh)):
-            cfg = Config(model=model.cfg,
-                         eval=dataclasses.replace(base, round_segments=segs))
-            ev = Evaluator(cfg, model, device=dev, cp_mesh=cp_mesh)
-            st = ev.start_sequence(ds.images(seq), n_obj)
-            masks, per_round, walls = np.zeros_like(gt), [], []
-            calls = len(ev._segment_spans(st.feat.shape[0])) \
-                if segs > 1 else 1
-            per_call = members if cp_mesh is not None else 1
-            want = {"global_matching": per_call * calls,
-                    "local_matching": n_frames - 1}
-            for r in range(rounds):
-                if len(scribbles) == r:
-                    scribbles.append(
-                        robot.interact(seq, masks, gt, n_obj).to_json())
-                torch.cuda.synchronize()
-                build.reset_launches()
-                t0 = time.perf_counter()
-                with norm_calls() as norms:
-                    masks = ev.run_round(st, scribbles[r], gt.shape[1:],
-                                         n_obj)
-                walls.append((time.perf_counter() - t0) * 1e3)
-                launches = dict(build.LAUNCHES)
-                want_r = with_norms(want, norms[0])
-                require(norms[0] > 0 and launches == {
-                    k: want_r.get(k, 0) for k in launches},
-                        f"cp eval ({name}, {segs} segments) round {r} "
-                        f"launched {launches}, expected {want_r}")
-                per_round.append(masks)
-            results[(name, segs)] = per_round
-            log(f"[cp] eval {image_size[0]}x{image_size[1]}, {n_frames} "
-                f"frames, stacked memory, {name}"
-                f"{f' ({members} members)' if cp_mesh is not None else ''}, "
-                f"{segs} segment{'s' if segs > 1 else ''}: rounds "
-                f"{', '.join(f'{t:.1f}' for t in walls)} ms; launches per "
-                f"round {want}")
-    ref = results[("single", 1)]
-    for key, per_round in results.items():
-        for r, (a, b) in enumerate(zip(ref, per_round)):
-            require(np.array_equal(a, b),
-                    f"cp eval {key} round {r}: masks differ from the "
-                    "single-device monolithic round's")
+    for name, cp_mesh in (("single", None), ("cp", mesh)):
+        ev = Evaluator(cfg, model, device=dev, cp_mesh=cp_mesh)
+        st = ev.start_sequence(ds.images(seq), n_obj)
+        masks, per_round, walls = np.zeros_like(gt), [], []
+        want = {"global_matching": members if cp_mesh is not None else 1,
+                "local_matching": n_frames - 1}
+        for r in range(rounds):
+            if len(scribbles) == r:
+                scribbles.append(
+                    robot.interact(seq, masks, gt, n_obj).to_json())
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            with norm_calls() as norms:
+                masks = ev.run_round(st, scribbles[r], gt.shape[1:], n_obj)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(build.LAUNCHES)
+            want_r = with_norms(want, norms[0])
+            require(norms[0] > 0 and launches == {
+                k: want_r.get(k, 0) for k in launches},
+                    f"cp eval ({name}) round {r} launched {launches}, "
+                    f"expected {want_r}")
+            per_round.append(masks)
+        results[name] = per_round
+        log(f"[cp] eval {image_size[0]}x{image_size[1]}, {n_frames} "
+            f"frames, stacked memory, {name}"
+            f"{f' ({members} members)' if cp_mesh is not None else ''}: "
+            f"rounds {', '.join(f'{t:.1f}' for t in walls)} ms; launches "
+            f"per round {want}")
+    ref = results["single"]
+    for r, (a, b) in enumerate(zip(ref, results["cp"])):
+        require(np.array_equal(a, b),
+                f"cp eval round {r}: masks differ from the single-device "
+                "round's")
     labelled = ", ".join(f"{(m > 0).mean():.3f}" for m in ref)
-    log(f"[cp] eval: masks of all {len(results)} variants equal in all "
+    log(f"[cp] eval: masks with and without the mesh equal in all "
         f"{rounds} rounds (non-background shares {labelled})")
 
 

@@ -2,9 +2,10 @@
 
 A copy of the JAX package's `config.py`, so that the two packages read the
 same fields with the same defaults. One default differs:
-`EvalConfig.round_segments` is 1 here (5 in JAX): segmented rounds give
-the monolithic round's masks and exist to hide a slow device-to-host
-link, which the card's PCIe link is not; the port runs both.
+`EvalConfig.round_segments` is 1 here (5 in JAX), the only value the
+port's Evaluator takes: JAX's segmented round gives the monolithic
+round's masks and exists to hide a slow device-to-host link, which the
+card's PCIe link is not.
 
 Object count, frame count and spatial dims are padded to fixed buckets, as
 in the JAX package, so that buffers keep their shapes across sequences.
@@ -116,11 +117,11 @@ class EvalConfig:
     gmap_refresh: float = 0.0
     # Mask readback stride: probabilities are bilinearly upsampled to
     # image_resolution/mask_stride, argmaxed, and the label map is
-    # nearest-expanded on the host. 1 = exact full-resolution argmax.
+    # nearest-expanded on the device. 1 = exact full-resolution argmax.
     mask_stride: int = 1
-    # Number of spans the propagation sweep is split into (geometrically
-    # growing); each span's packed masks download while the next computes.
-    # 1 = the monolithic round. Both give the same masks.
+    # JAX's number of spans the propagation sweep is split into; the
+    # port's Evaluator runs the monolithic round only and refuses any
+    # value but 1.
     round_segments: int = 1
 
 

@@ -19,15 +19,15 @@ over a padded frame bucket). Per round (`dispatch_round`):
    resetting its carry to the interaction output where the backward sweep
    starts; each step runs local matching, min-fusion, the decomposed
    propagation head and a softmax;
-4. probabilities are upsampled and argmaxed (`_labels_impl`). The
-   monolithic round (`round_segments=1`) keeps every frame's labels on the
-   device at its end; `collect_round` repeats them by `mask_stride`, crops
-   them to the real frames and the image and casts them to int32 there
-   (`_crop_labels`), then downloads them into pinned host memory (on a
-   CPU evaluator they are already on the host). A segmented round splits
-   the sweep into `round_segments` spans, bit-packs each span's labels
-   (`_masks_impl`) and hands them to the download pool while the next
-   span computes; the host unpacks them. Both give the same masks.
+4. probabilities are upsampled and argmaxed (`_labels_impl`), and every
+   frame's labels stay on the device at the round's end; `collect_round`
+   crops them to the real frames and the image, repeats them by
+   `mask_stride` and casts them to int32 there, then downloads them into
+   pinned host memory (`engine/labels.py`: `crop_labels`, `to_host`; on a
+   CPU evaluator they are already on the host).
+
+The round is this one path: `EvalConfig.round_segments` (JAX's segmented
+round, which hid a TPU's slow device-to-host link) must be 1.
 
 Frames come as host-normalized floats or as raw uint8 RGB, which is
 padded with the ImageNet mean byte and normalized on the device.
@@ -42,18 +42,14 @@ runs on the calling thread) cover each call end to end:
 `manet.round.rasterize` (scribbles to a padded raster) +
 `manet.round.dispatch` (all of `dispatch_round`) + `manet.round.wait` (the
 masks' crop and download) + `manet.round.unpack` (the host's share: the
-numpy view of the downloaded labels; a segmented round's unpacking,
-mask-stride repeat, crop and int32 cast, which alternates with the waits,
-one pair a span).
+numpy view of the downloaded labels).
 
-The helpers the serving engines share with the evaluator live here too:
-the mask bit-packing, the object, mask-bit and live-page buckets, and the
-download pool.
+The bucket policies the stream follows live here too: the object and
+live-page buckets, the spatial padding and the scribbles' max-pool.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
 import time
 from typing import Any, Dict
@@ -65,6 +61,7 @@ import torch.nn.functional as F
 from cvpr2020_manet_tpu_torch.config import Config, check_params_only
 from cvpr2020_manet_tpu_torch.data.davis import IMAGENET_MEAN
 from cvpr2020_manet_tpu_torch.device import resolve_device
+from cvpr2020_manet_tpu_torch.engine.labels import crop_labels, to_host
 from cvpr2020_manet_tpu_torch.interactive.scribbles import (
     annotated_frames, scribbles2mask)
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
@@ -73,12 +70,6 @@ from cvpr2020_manet_tpu_torch.parallel.cp_matching import (
     check_cp_engine, cp_match_flat)
 from cvpr2020_manet_tpu_torch.utils.ingest import preprocess_frames
 from cvpr2020_manet_tpu_torch.utils.profiling import annotate
-
-# One process-wide pool for mask downloads (threads start on first use):
-# the serving engines hand each packed mask's device-to-host copy to it,
-# so that the copy overlaps the next frames' device work.
-_FETCH_POOL = concurrent.futures.ThreadPoolExecutor(
-    max_workers=4, thread_name_prefix="mask-fetch")
 
 # The ImageNet mean as bytes: uint8 frames are padded with it, so that the
 # padding normalizes to about 0.0, as the float path's zero padding does.
@@ -94,42 +85,6 @@ def pad_image_to(x: np.ndarray, multiple: int) -> np.ndarray:
     return np.pad(x, [(0, 0)] * (x.ndim - 3) + [(0, ph), (0, pw), (0, 0)])
 
 
-def pack_labels(lab, bits: int):
-    """Bit-pack uint8 labels along the trailing (W) axis (torch or numpy):
-    8 px/byte at 1 bit, 4 at 2 bits, 2 at 4 bits."""
-    if bits == 1:
-        acc = lab[..., 0::8]
-        for i in range(1, 8):
-            acc = acc | (lab[..., i::8] << i)
-        return acc
-    if bits == 2:
-        return (lab[..., 0::4] | (lab[..., 1::4] << 2)
-                | (lab[..., 2::4] << 4) | (lab[..., 3::4] << 6))
-    if bits == 4:
-        return lab[..., 0::2] | (lab[..., 1::2] << 4)
-    return lab
-
-
-def mask_bits_for_labels(num_labels: int) -> int:
-    """Bits/px for the LIVE label count of a sequence."""
-    if num_labels <= 2:
-        return 1
-    if num_labels <= 4:
-        return 2
-    if num_labels <= 16:
-        return 4
-    return 8
-
-
-def aligned_mask_bits(num_labels: int, w_pad: int) -> int:
-    """mask_bits_for_labels widened until the packed W axis is whole-byte
-    aligned (the strided pack slices need W % (8/bits) == 0)."""
-    bits = mask_bits_for_labels(num_labels)
-    while w_pad % (8 // bits):
-        bits *= 2
-    return bits
-
-
 def object_bucket_for(num_objects: int | None, o_max: int) -> int:
     """Padded object-axis size for a sequence (4 when it fits, else the
     full bucket)."""
@@ -139,16 +94,6 @@ def object_bucket_for(num_objects: int | None, o_max: int) -> int:
         if num_objects + 1 <= b:
             return b
     return o_max
-
-
-def bucket_mask_bits(o_bucket: int) -> int:
-    """Bits per pixel of the packed masks of an object bucket (the batch
-    engine packs at the bucket, not at the live label count)."""
-    if o_bucket <= 4:
-        return 2
-    if o_bucket <= 16:
-        return 4
-    return 8
 
 
 def live_page_bucket(rounds: int, capacity: int) -> int:
@@ -168,31 +113,14 @@ def downsample_mask_max(m: np.ndarray, stride: int) -> np.ndarray:
     return m.reshape(h // stride, stride, w // stride, stride, o).max((1, 3))
 
 
-def unpack_labels(packed: np.ndarray, bits: int) -> np.ndarray:
-    """Inverse of `pack_labels`: (..., W // ppb) uint8 -> (..., W) uint8."""
-    if bits == 8:
-        return packed
-    n = 8 // bits
-    mask = (1 << bits) - 1
-    out = np.empty((*packed.shape[:-1], packed.shape[-1] * n), np.uint8)
-    for i in range(n):
-        np.bitwise_and(packed >> (bits * i) if i else packed, mask,
-                       out=out[..., i::n])
-    return out
-
-
 @dataclasses.dataclass
 class RoundHandle:
     """Device outputs of one dispatched round, not yet downloaded."""
-    annot: int              # annotated frame index
     nf: int                 # actual (unpadded) frame count
     t_bucket: int
-    # monolithic: (T, H_pad / mask_stride, W_pad / mask_stride) int64
-    # argmax labels of every frame of the bucket, on the device, unpacked
-    masks: Any = None
-    pk: int | None = None   # segmented: mask bits/px
-    annot_mask: Any = None  # segmented: Future of the annotated frame's mask
-    seg_masks: list | None = None   # segmented: [(start, count, Future)]
+    # (T, H_pad / mask_stride, W_pad / mask_stride) int64 argmax labels of
+    # every frame of the bucket, on the device
+    masks: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -220,23 +148,6 @@ def release_state(state: SequenceState, keep_features: bool = False) -> None:
         state.feat = state.emb = None
 
 
-def _download(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
-
-
-def _to_host(t: torch.Tensor) -> torch.Tensor:
-    """`t` on the host. A device tensor is copied into pinned memory from
-    PyTorch's caching host allocator, whose blocks stay mapped and are
-    reused once their holders drop them, and the copy is waited for; a
-    host tensor is returned as it is."""
-    if t.device.type == "cpu":
-        return t
-    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    out.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
-    return out
-
-
 class Evaluator:
     """Runs a model against an `InteractiveSession`."""
 
@@ -249,6 +160,12 @@ class Evaluator:
         shard over its context members (`parallel/cp_matching.py`, the
         allgather schedule)."""
         check_params_only(model.cfg, "Evaluator")
+        if cfg.eval.round_segments != 1:
+            raise ValueError(
+                f"round_segments={cfg.eval.round_segments!r}: the Evaluator "
+                "runs the monolithic round only (round_segments=1); JAX's "
+                "segmented round hides a slow device-to-host link, which "
+                "the card's is not")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -344,41 +261,40 @@ class Evaluator:
                       if self.cp_mesh is None else None))
 
     def _sweep_impl(self, state: SequenceState, head: dict, annot: int,
-                    carry, probs, gmap, frame_valid, *, start: int,
-                    count: int):
-        """Propagate steps [start, start + count) of the round's (T-1)-step
-        schedule, writing into probs / gmap (the round's copies) in place.
-        Step i visits frame annot+1+i on the forward sweep, then annot-1-..
-        backward; the carry resets to the interaction output where the
-        backward sweep starts, so any split of the schedule computes the
-        monolithic round's masks. -> (carry, frames visited)."""
+                    probs, gmap, frame_valid) -> None:
+        """Propagate the round's (T-1)-step schedule, writing into probs /
+        gmap (the round's copies) in place: frames annot+1 .. T-1 forward,
+        then annot-1 .. 0 backward, the carry reset to the interaction
+        output where the backward sweep starts."""
         model, feat, emb = self.model, state.feat, state.emb
         t, h, w, ce = emb.shape
         o = probs.shape[-1]
-        idx = start + np.arange(count)
         fwd_len = t - 1 - annot
-        frame = np.where(idx < fwd_len, annot + 1 + idx,
-                         annot - 1 - (idx - fwd_len))
-        prev_frame = np.where(idx < fwd_len, frame - 1, frame + 1)
+        frame = np.concatenate([np.arange(annot + 1, t),
+                                np.arange(annot - 1, -1, -1)])
+        prev_frame = np.where(np.arange(t - 1) < fwd_len, frame - 1,
+                              frame + 1)
         frame_t = torch.as_tensor(frame, device=emb.device)
-        # global matching does not depend on the carry: all the span's
-        # frames in one matching call (one launch; cp: one per member)
+        # global matching does not depend on the carry: every frame in one
+        # matching call (one launch; cp: one per member)
         query = emb[frame_t].reshape(-1, ce)
         if self.cp_mesh is not None:
             gm_pre = cp_match_flat(query, head["ref_emb"], head["ref_onehot"],
                                    self.cp_mesh)
         else:
             gm_pre = model.match_prepared(query, head["bucketed"])
-        gm_pre = gm_pre.reshape(count, h, w, o)
+        gm_pre = gm_pre.reshape(t - 1, h, w, o)
         ref_emb, ref_onehot = head["ref_emb"], head["ref_onehot"]
         int_probs, int_mem = head["int_probs"], head["int_mem"]
         probs_seq, g_seq = [], []
-        for j in range(count):
+        carry = int_probs
+        for j in range(t - 1):
             f = int(frame[j])
-            prev = int_probs if idx[j] == fwd_len else carry
+            if j == fwd_len:
+                carry = int_probs
             logits, g_new = model.propagate(
                 feat[f], emb[f], ref_emb, ref_onehot, None, gmap[f],
-                emb[int(prev_frame[j])], prev, int_mem, head["obj_valid"],
+                emb[int(prev_frame[j])], carry, int_mem, head["obj_valid"],
                 gmap_override=gm_pre[j],
                 head_pre=head["head_fp"][f][None] + head["head_mp"])
             carry = torch.softmax(logits, dim=-1)
@@ -389,38 +305,11 @@ class Evaluator:
         probs[frame_t] = torch.where(fv, torch.stack(probs_seq),
                                      probs[frame_t])
         gmap[frame_t] = torch.where(fv, torch.stack(g_seq), gmap[frame_t])
-        return carry, frame_t
-
-    def _segment_spans(self, t: int) -> list[tuple[int, int]]:
-        """Split the (t-1)-step schedule into round_segments spans that
-        grow about 2x each: the first segment's masks start downloading
-        early and the larger later ones compute under the earlier
-        downloads. The last span is the largest."""
-        n = t - 1
-        if n == 0:
-            return []
-        s = min(self.cfg.eval.round_segments, n)
-        total = (1 << s) - 1
-        spans, pos, cum = [], 0, 0
-        for i in range(s):
-            cum += 1 << i
-            end = n if i == s - 1 else min(
-                max(round(n * cum / total), pos + 1),  # >= 1 per span
-                n - (s - 1 - i))                       # >= 1 per later span
-            spans.append((pos, end - pos))
-            pos = end
-        return spans
 
     @staticmethod
     def _labels_impl(probs, *, hw):
         """(T, h, w, O) -> (T, H, W) int64 argmax labels at `hw`."""
         return resize_bilinear(probs, hw).argmax(dim=-1)
-
-    @staticmethod
-    def _masks_impl(probs, *, hw, pack):
-        """(T, h, w, O) -> (T, H, W * pack / 8) bit-packed argmax labels."""
-        lab = Evaluator._labels_impl(probs, hw=hw).to(torch.uint8)
-        return pack_labels(lab, pack)
 
     # ---------------- host orchestration ------------------------------- #
 
@@ -553,11 +442,8 @@ class Evaluator:
                        annot: int, num_objects: int) -> RoundHandle:
         """Enqueue one round's device work, updating `state` in place.
         `raster` is the annotated frame's scribble raster padded to
-        `pad_to` (-1 = unscribbled). With round_segments > 1 the sweep
-        runs in segments, and each segment's packed masks go to the
-        download pool while the next segment computes; the monolithic
-        round argmaxes all frames at its end and keeps the labels on the
-        device, for `collect_round`."""
+        `pad_to` (-1 = unscribbled). The round argmaxes all frames at its
+        end and keeps the labels on the device, for `collect_round`."""
         with annotate("manet.round.dispatch"):
             cfg = self.cfg
             dev = self.device
@@ -588,28 +474,10 @@ class Evaluator:
             probs = state.prev_masks.clone()
             probs[annot] = head["int_probs"]
             gmap = head["gmap_mem"].clone()
-            carry = head["int_probs"]
-            handle = RoundHandle(annot=annot, nf=state.num_frames,
-                                 t_bucket=t_bucket)
-            if cfg.eval.round_segments > 1:
-                pk = aligned_mask_bits(num_objects + 1, mask_hw[1])
-                handle.pk = pk
-                handle.annot_mask = _FETCH_POOL.submit(
-                    _download, self._masks_impl(head["int_probs"][None],
-                                                hw=mask_hw, pack=pk))
-                handle.seg_masks = []
-                for s0, c in self._segment_spans(t_bucket):
-                    carry, frames = self._sweep_impl(
-                        state, head, annot, carry, probs, gmap, frame_valid,
-                        start=s0, count=c)
-                    mk = self._masks_impl(probs[frames], hw=mask_hw, pack=pk)
-                    handle.seg_masks.append(
-                        (s0, c, _FETCH_POOL.submit(_download, mk)))
-            else:
-                if t_bucket > 1:
-                    self._sweep_impl(state, head, annot, carry, probs, gmap,
-                                     frame_valid, start=0, count=t_bucket - 1)
-                handle.masks = self._labels_impl(probs, hw=mask_hw)
+            if t_bucket > 1:
+                self._sweep_impl(state, head, annot, probs, gmap, frame_valid)
+            handle = RoundHandle(nf=state.num_frames, t_bucket=t_bucket,
+                                 masks=self._labels_impl(probs, hw=mask_hw))
             state.prev_masks, state.gmap_mem = probs, gmap
             state.int_mem = head["int_mem"]
             state.round_idx += 1
@@ -617,63 +485,13 @@ class Evaluator:
 
     def collect_round(self, handle: RoundHandle,
                       image_hw: tuple[int, int]) -> np.ndarray:
-        """Crop, cast and download (monolithic) or gather and unpack
-        (segmented) a dispatched round's (T_actual, H, W) int32 labels."""
-        if handle.masks is not None:
-            with annotate("manet.round.wait"):
-                masks = _to_host(self._crop_labels(handle.masks[:handle.nf],
-                                                   image_hw))
-            with annotate("manet.round.unpack"):
-                return masks.numpy()
-        pk = handle.pk
-        # segmented: each span's masks unpack while later spans download
+        """Crop, cast and download a dispatched round's (T_actual, H, W)
+        int32 labels."""
         with annotate("manet.round.wait"):
-            packed = handle.annot_mask.result()
+            masks = to_host(crop_labels(handle.masks[:handle.nf], image_hw,
+                                        self.cfg.eval.mask_stride))
         with annotate("manet.round.unpack"):
-            lab_annot = unpack_labels(packed, pk)[0]
-            nf = handle.nf
-            masks = np.zeros((nf, *lab_annot.shape), np.uint8)
-            masks[handle.annot] = lab_annot
-        fwd_len = handle.t_bucket - 1 - handle.annot
-        for s0, c, fut in handle.seg_masks:
-            with annotate("manet.round.wait"):
-                packed = fut.result()
-            with annotate("manet.round.unpack"):
-                lab = unpack_labels(packed, pk)
-                for j in range(c):
-                    i = s0 + j
-                    f = (handle.annot + 1 + i if i < fwd_len
-                         else handle.annot - 1 - (i - fwd_len))
-                    if f < nf:
-                        masks[f] = lab[j]
-        with annotate("manet.round.unpack"):
-            return self._full_size(masks, image_hw)
-
-    def _crop_labels(self, lab: torch.Tensor,
-                     image_hw: tuple[int, int]) -> torch.Tensor:
-        """`_full_size` on the labels' own device: (T_actual, H_pad /
-        mask_stride, W_pad / mask_stride) labels -> (T_actual, H, W) int32,
-        contiguous. The low-resolution labels are cropped to what covers
-        the image and cast before the repeat."""
-        ms = self.cfg.eval.mask_stride
-        h_img, w_img = image_hw
-        h, w = -(-h_img // ms), -(-w_img // ms)
-        lab = lab[:, :h, :w].to(torch.int32)
-        if ms > 1:
-            t, h, w = lab.shape
-            lab = lab[:, :, None, :, None].expand(t, h, ms, w, ms).reshape(
-                t, h * ms, w * ms)[:, :h_img, :w_img]
-        return lab.contiguous()
-
-    def _full_size(self, masks: np.ndarray,
-                   image_hw: tuple[int, int]) -> np.ndarray:
-        """(T_actual, H_pad / mask_stride, W_pad / mask_stride) uint8 labels
-        -> (T_actual, H, W) int32."""
-        ms = self.cfg.eval.mask_stride
-        if ms > 1:
-            masks = np.repeat(np.repeat(masks, ms, axis=1), ms, axis=2)
-        h_img, w_img = image_hw
-        return masks[:, :h_img, :w_img].astype(np.int32)
+            return masks.numpy()
 
     # ---------------- full benchmark ----------------------------------- #
 

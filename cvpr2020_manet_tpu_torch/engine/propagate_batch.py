@@ -53,9 +53,9 @@ import torch.nn.functional as F
 
 from cvpr2020_manet_tpu_torch.config import Config, check_params_only
 from cvpr2020_manet_tpu_torch.device import resolve_device, synchronize
-from cvpr2020_manet_tpu_torch.engine.evaluator import (
-    _FETCH_POOL, bucket_mask_bits, object_bucket_for, pack_labels,
-    unpack_labels)
+from cvpr2020_manet_tpu_torch.engine.evaluator import object_bucket_for
+from cvpr2020_manet_tpu_torch.engine.labels import (
+    FETCH_POOL, bucket_mask_bits, download, pack_labels, unpack_labels)
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 from cvpr2020_manet_tpu_torch.models.manet import MANet
 from cvpr2020_manet_tpu_torch.utils.ingest import (
@@ -231,7 +231,7 @@ class BatchPropagator:
                     ov[:n_obj[i] + 1] = 1.0
                     packed, state = self._one_seq(feat[i], emb[i], fm[i], ov,
                                                   buckets[i], keep=i in keep)
-                    fetches.append(_FETCH_POOL.submit(_download, packed))
+                    fetches.append(FETCH_POOL.submit(download, packed))
                     if state is not None:
                         kept[i] = state
             if probs_of:
@@ -260,10 +260,6 @@ class BatchPropagator:
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
-def _download(packed: torch.Tensor) -> np.ndarray:
-    return packed.cpu().numpy()
 
 
 # --------------------------------------------------------------------- #

@@ -21,13 +21,14 @@ State kept on the device between calls:
 `observe_async` enqueues the upload and the device work and hands the
 packed mask's download to the shared download pool, so that frame i's
 mask crosses the link while frame i+1 computes; `observe` waits for it.
-Masks are bit-packed at the live label count. A frame takes raw uint8 RGB
-(normalized on the device), host-normalized floats, or a planar YUV 4:2:0
-(y, uv) pair, sent as one flat buffer. Phase spans
-(`utils/profiling.annotate`): `manet.observe` = `manet.observe.ingest`
-(host padding and the upload) + `manet.observe.dispatch` (the device work
-enqueued, the state updated) + `manet.observe.wait` (the mask's download
-and unpack on the pool, which no span there can see).
+Masks are bit-packed at the live label count (`engine/labels.py`). A
+frame takes raw uint8 RGB (normalized on the device), host-normalized
+floats, or a planar YUV 4:2:0 (y, uv) pair, sent as one flat buffer.
+Phase spans (`utils/profiling.annotate`): `manet.observe` =
+`manet.observe.ingest` (host padding and the upload) +
+`manet.observe.dispatch` (the device work enqueued, the state updated) +
+`manet.observe.wait` (the mask's download and unpack on the pool, which
+no span there can see).
 
 The memory is f32, as in JAX. With the default matching backend a bf16
 query meets it in f32 (kernel 1's f32 variant); with
@@ -50,8 +51,9 @@ import torch.nn.functional as F
 from cvpr2020_manet_tpu_torch.config import Config, check_params_only
 from cvpr2020_manet_tpu_torch.device import resolve_device
 from cvpr2020_manet_tpu_torch.engine.evaluator import (
-    _FETCH_POOL, aligned_mask_bits, downsample_mask_max, live_page_bucket,
-    object_bucket_for, pack_labels, pad_image_to, unpack_labels)
+    downsample_mask_max, live_page_bucket, object_bucket_for, pad_image_to)
+from cvpr2020_manet_tpu_torch.engine.labels import (
+    FETCH_POOL, aligned_mask_bits, download, pack_labels, unpack_labels)
 from cvpr2020_manet_tpu_torch.interactive.scribbles import (
     annotated_frames, scribble_masks_per_object, scribbles2mask)
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
@@ -89,8 +91,8 @@ class StreamingIVOS:
     # ------------------------------------------------------------------ #
 
     def reset(self, num_objects: int) -> None:
-        """A new stream of `num_objects` objects (the object bucket and the
-        mask bit depth follow the evaluator's policies)."""
+        """A new stream of `num_objects` objects (the object bucket follows
+        the evaluator's policy, the mask bit depth `aligned_mask_bits`)."""
         if not 0 < num_objects <= self.cfg.model.max_objects:
             # an over-budget stream would drop the extra objects'
             # scribbles from the positive channels but count them as
@@ -210,7 +212,7 @@ class StreamingIVOS:
         # changes the stream's bit depth must not reinterpret masks in
         # flight
         h, w = self.cfg.eval.image_size
-        lab = unpack_labels(packed.cpu().numpy(), bits)
+        lab = unpack_labels(download(packed), bits)
         return lab[:h, :w].astype(np.int32)
 
     # ------------------------------------------------------------------ #
@@ -231,7 +233,7 @@ class StreamingIVOS:
                 image, self.live_pages() * self.hh * self.ww, self._bits)
             st["prev_emb"], st["prev_probs"] = e_t, probs
             st["cur_feat"], st["cur_emb"], st["cur_probs"] = f_t, e_t, probs
-            return _FETCH_POOL.submit(self._unpack, mask, self._bits)
+            return FETCH_POOL.submit(self._unpack, mask, self._bits)
 
     def _upload(self, image) -> torch.Tensor:
         """A frame padded on the host and copied to the device in one

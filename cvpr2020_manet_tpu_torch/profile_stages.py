@@ -15,8 +15,9 @@ into the stages it runs, on inputs of their true shapes:
   sweep_step    the (T-1)-step sweep: local matching (kernel 2), the
                 decomposed propagation head and the softmax, with the
                 global matching hoisted out (`gmap_override`)
-  mask_pack     upsampling, argmax and bit-packing of the T masks
-                (`Evaluator._masks_impl`)
+  labels        upsampling and argmax of the T masks
+                (`Evaluator._labels_impl`), then their crop to the image
+                and int32 cast (`engine/labels.crop_labels`)
 
 and with `--int8` also the int8 pair (`prepare_ref_int8`, kernel 3 on the
 same queries). Each stage is timed by the two-point slope
@@ -43,6 +44,7 @@ import torch
 from cvpr2020_manet_tpu_torch.config import Config, tiny_test_config
 from cvpr2020_manet_tpu_torch.device import tool_device
 from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+from cvpr2020_manet_tpu_torch.engine.labels import crop_labels
 from cvpr2020_manet_tpu_torch.utils.profiling import elapsed_ms, slope_ms
 
 ENCODE_CHUNK = 8     # Evaluator.start_sequence's frames a chunk
@@ -80,9 +82,13 @@ def sweep(model, feat, emb, ref_emb, ref_onehot, gm_pre, gmap, head_fp,
     return torch.stack(out)
 
 
-def mask_pack(probs: torch.Tensor, hw: tuple[int, int], pack: int):
-    """(T, h, w, O) probabilities -> (T, H, W pack / 8) packed labels."""
-    return Evaluator._masks_impl(probs, hw=hw, pack=pack)
+def round_labels(probs: torch.Tensor, mask_hw: tuple[int, int],
+                 image_hw: tuple[int, int], mask_stride: int) -> torch.Tensor:
+    """(T, h, w, O) probabilities -> (T, H, W) int32 labels of the image,
+    on the probabilities' device, as `Evaluator.collect_round` downloads
+    them."""
+    return crop_labels(Evaluator._labels_impl(probs, hw=mask_hw), image_hw,
+                       mask_stride)
 
 
 def main(argv=None) -> int:
@@ -167,8 +173,9 @@ def main(argv=None) -> int:
             head_fp, head_mp, int_mem, obj_valid, prev), per=t - 1)
 
         probs = rand(t, hh, ww, o, normal=False)
-        timed(f"mask_pack({t}f)", lambda: mask_pack(probs, (hp, wp), 2),
-              per=t)
+        ms = cfg.eval.mask_stride
+        timed(f"labels({t}f)", lambda: round_labels(
+            probs, (hp // ms, wp // ms), (h, w), ms), per=t)
 
     calls = {name: ms for name, _, ms, _ in rows}
     int8_pair = {"prepare_ref_int8", f"matching_int8({t - 1}f)"}

@@ -18,8 +18,7 @@ import torch
 
 from cvpr2020_manet_tpu_torch.config import ModelConfig, tiny_test_config
 from cvpr2020_manet_tpu_torch.data import SyntheticDataset
-from cvpr2020_manet_tpu_torch.engine.evaluator import (
-    Evaluator, aligned_mask_bits, unpack_labels)
+from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
 from cvpr2020_manet_tpu_torch.interactive.scribbles import (
     annotated_frames, scribbles2mask)
 from cvpr2020_manet_tpu_torch.models import MANet
@@ -234,7 +233,7 @@ def test_profile_encode_stages_chain_to_extract_features(model_cfg):
 
 def test_profile_stages_chain_to_the_evaluators_first_round():
     """encode -> (the interaction head) -> prepare_ref -> matching -> sweep
-    -> mask_pack, each the stage the profiler times, give the Evaluator's
+    -> labels, each the stage the profiler times, give the Evaluator's
     first-round masks (`min_fused`) exactly."""
     cfg = tiny_test_config()
     model = MANet(cfg.model, device="cpu", seed=0)
@@ -268,7 +267,7 @@ def test_profile_stages_chain_to_the_evaluators_first_round():
             head["gmap_mem"], head["head_fp"], head["head_mp"],
             head["int_mem"], obj_valid, head["int_probs"])
         probs = torch.cat([head["int_probs"][None], probs])
-        pk = aligned_mask_bits(n_obj + 1, hw[1])
-        packed = profile_stages.mask_pack(probs, hw, pk)
-    masks = unpack_labels(packed.numpy(), pk).astype(np.int32)
-    np.testing.assert_array_equal(masks, want)
+        masks = profile_stages.round_labels(probs, hw, hw,
+                                            cfg.eval.mask_stride)
+    assert masks.dtype == torch.int32
+    np.testing.assert_array_equal(masks.numpy(), want)

@@ -5,12 +5,12 @@ Both packages get the tiny config, the same Flax weights (bridged into the
 port), the same frames and the same scribbles (the port's robot, run once
 on the first engine's masks, so that every engine sees the same calls).
 
-- Segmented rounds (`round_segments` 5) against the monolithic round, in
-  both matching-memory modes and with both backends: masks equal, device
-  state to 1e-5 (the JAX test's tolerances).
-- Context-parallel eval (stacked memory, monolithic and segmented) and the
-  context-parallel stream, on a 2 x 4 mesh of CPU members: masks equal to
-  the port's single-device engine, probabilities to 1e-5.
+- The port's one round (monolithic) against JAX's segmented round (its
+  default `round_segments` 5), in both matching-memory modes and with
+  both backends; the port's Evaluator refuses any `round_segments` but 1.
+- Context-parallel eval (stacked memory) and the context-parallel stream,
+  on a 2 x 4 mesh of CPU members: masks equal to the port's
+  single-device engine, probabilities to 1e-5.
 - Against the JAX engines (their cp modes on JAX's 2 x 4 CPU mesh): f32
   masks equal except at pixels where JAX's top-2 probabilities lie within
   1e-5 (argmax ties; the packages differ in f32 summation order, as in
@@ -148,23 +148,31 @@ def _hw_pad(cfg):
     ("min_fused", "auto"), ("stacked", "auto"),
     ("min_fused", "int8"), ("stacked", "int8")])
 def test_segmented_round_matches_monolithic_and_jax(memory_mode, backend):
-    """Three rounds (stacked: live pages 1, 2, 4) monolithic and with
-    round_segments=5; the segmented round also against JAX's."""
-    jcfg, tcfg = _configs(matching_memory=memory_mode, round_segments=5)
+    """Three rounds (stacked: live pages 1, 2, 4) of JAX's segmented round
+    (`round_segments` 5, its default) against the port's monolithic
+    round, the only one it runs."""
+    jcfg, tcfg = _configs(matching_memory=memory_mode)
+    assert (jcfg.eval.round_segments, tcfg.eval.round_segments) == (5, 1)
     jmodel, variables, tmodel = _models(jcfg, tcfg, backend)
     ds = _dataset(tcfg)
     scribbles = []
-    mono = _rounds(Evaluator(dataclasses.replace(tcfg, eval=dataclasses.replace(
-        tcfg.eval, round_segments=1)), tmodel, device="cpu"), ds, scribbles)
-    seg = _rounds(Evaluator(tcfg, tmodel, device="cpu"), ds, scribbles)
-    _assert_same_engine(mono, seg)
+    port = _rounds(Evaluator(tcfg, tmodel, device="cpu"), ds, scribbles)
     if memory_mode == "stacked":
         # three rounds of annotated pixels in their slots, none after
-        live = (_np(seg[2].mem_onehot).reshape(
+        live = (_np(port[2].mem_onehot).reshape(
             tcfg.eval.max_interactions, -1).sum(1) > 0)
         assert live.tolist() == [True] * 3 + [False] * (len(live) - 3)
     jrun = _rounds(JaxEvaluator(jcfg, jmodel, variables), ds, scribbles)
-    _assert_matches_jax(seg, jrun, backend, _hw_pad(tcfg))
+    _assert_matches_jax(port, jrun, backend, _hw_pad(tcfg))
+
+
+@pytest.mark.parametrize("segments", [0, 2, 5])
+def test_evaluator_refuses_segmented_rounds(segments):
+    """The port runs the monolithic round only: any other `round_segments`
+    is refused when the Evaluator is built."""
+    _, tcfg = _configs(round_segments=segments)
+    with pytest.raises(ValueError, match="round_segments"):
+        Evaluator(tcfg, MANet(tcfg.model, device="cpu"), device="cpu")
 
 
 @pytest.mark.parametrize("option", ["gmap_refresh", "ablate_memory"])
@@ -203,16 +211,14 @@ def _count_cp_calls(monkeypatch, module):
     return calls
 
 
-@pytest.mark.parametrize("segments", [1, 5])
-def test_cp_eval_round_matches_single_device_and_jax(segments, monkeypatch):
+def test_cp_eval_round_matches_single_device_and_jax(monkeypatch):
     """Context-sharded stacked-memory eval (JAX:
     tests/test_parallel.py::test_cp_eval_round_matches_single_device): the
     port's Evaluator with a 2 x 4 CPU mesh gives the single-device masks
     across rounds, and JAX's cp Evaluator's; it matches through the mesh
-    once per sweep call (3 rounds x 3 spans of the 4-frame bucket when
-    segmented)."""
+    once a round."""
     from cvpr2020_manet_tpu_torch.engine import evaluator
-    jcfg, tcfg = _configs(matching_memory="stacked", round_segments=segments)
+    jcfg, tcfg = _configs(matching_memory="stacked", round_segments=1)
     jmodel, variables, tmodel = _models(jcfg, tcfg, "auto")
     ds = _dataset(tcfg)
     scribbles = []
@@ -220,7 +226,7 @@ def test_cp_eval_round_matches_single_device_and_jax(segments, monkeypatch):
     calls = _count_cp_calls(monkeypatch, evaluator)
     cp = _rounds(Evaluator(tcfg, tmodel, device="cpu", cp_mesh=_cpu_mesh()),
                  ds, scribbles)
-    assert calls == [{"data": 2, "context": 4}] * (3 if segments == 1 else 9)
+    assert calls == [{"data": 2, "context": 4}] * 3
     _assert_same_engine(single, cp)
     jrun = _rounds(JaxEvaluator(jcfg, jmodel, variables,
                                 cp_mesh=jax_mesh(data=2, context=4)),

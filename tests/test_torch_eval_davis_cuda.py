@@ -124,16 +124,13 @@ class _Lockstep:
                                _gaps(out[0]).reshape(-1))
             return (*out, want.to(ref_onehot.device))
 
-        def sweep(ev, state, head, annot, carry, probs, gmap, frame_valid,
-                  *, start, count):
+        def sweep(ev, state, head, annot, probs, gmap, frame_valid):
             t = state.emb.shape[0]
-            idx = start + np.arange(count)
-            fwd_len = t - 1 - annot
-            frame = np.where(idx < fwd_len, annot + 1 + idx,
-                             annot - 1 - (idx - fwd_len))
+            frame = np.concatenate([np.arange(annot + 1, t),
+                                    np.arange(annot - 1, -1, -1)])
             self.valid_steps = list(frame_valid.cpu().numpy()[frame])
-            return real_sweep(ev, state, head, annot, carry, probs, gmap,
-                              frame_valid, start=start, count=count)
+            return real_sweep(ev, state, head, annot, probs, gmap,
+                              frame_valid)
 
         def propagate(model, *args, **kw):
             self.step_valid = bool(self.valid_steps.pop(0))

@@ -19,8 +19,9 @@ import torch
 
 from cvpr2020_manet_tpu_torch.config import tiny_test_config
 from cvpr2020_manet_tpu_torch.data import SyntheticDataset
-from cvpr2020_manet_tpu_torch.engine.evaluator import (
-    Evaluator, aligned_mask_bits, pack_labels, unpack_labels)
+from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+from cvpr2020_manet_tpu_torch.engine.labels import (
+    aligned_mask_bits, pack_labels, unpack_labels)
 from cvpr2020_manet_tpu_torch.models import MANet
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 

@@ -22,8 +22,9 @@ import torch
 
 from cvpr2020_manet_tpu_torch.config import tiny_test_config
 from cvpr2020_manet_tpu_torch.data import SyntheticDataset
-from cvpr2020_manet_tpu_torch.engine.evaluator import (
-    Evaluator, RoundHandle, aligned_mask_bits, pack_labels, unpack_labels)
+from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator, RoundHandle
+from cvpr2020_manet_tpu_torch.engine.labels import (
+    aligned_mask_bits, pack_labels, unpack_labels)
 from cvpr2020_manet_tpu_torch.models import MANet
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 
@@ -61,8 +62,7 @@ def test_collected_labels_are_pinned_and_equal_the_cpus(cuda, mask_stride):
     out = {}
     for dev in ("cpu", "cuda"):
         ev = Evaluator(cfg, MANet(cfg.model, device=dev, seed=0), device=dev)
-        handle = RoundHandle(annot=0, nf=FRAMES, t_bucket=4,
-                             masks=lab.to(dev))
+        handle = RoundHandle(nf=FRAMES, t_bucket=4, masks=lab.to(dev))
         out[dev] = ev.collect_round(handle, SIZE)
     assert _pinned(out["cuda"]) and not _pinned(out["cpu"])
     assert out["cuda"].dtype == np.int32 and out["cuda"].flags.c_contiguous

@@ -61,7 +61,7 @@ def _u8(images):
     return (np.clip(images, 0, 1) * 255).astype(np.uint8)
 
 
-def _call(what, tiny, segments=1):
+def _call(what, tiny):
     """-> the one call whose spans the test reads, its engine made ready
     (a round after a first one on the same state)."""
     cfg, model, ds, seq = tiny
@@ -72,8 +72,6 @@ def _call(what, tiny, segments=1):
         s.observe(frames[0])
         s.correct(ds.initial_scribbles(seq, 0).to_json())
         return lambda: s.observe(frames[1])
-    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
-        cfg.eval, round_segments=segments))
     ev = Evaluator(cfg, model, device="cpu")
     if what == "start_sequence":
         return lambda: ev.start_sequence(frames, 2)
@@ -136,22 +134,6 @@ def test_call_emits_its_phases_once_in_order(tiny, what):
     # the phases follow one another: none overlaps the next
     assert all(x[2] <= y[1] for x, y in zip(inner, inner[1:]))
     assert _best_cover(call, outer_name, spans) >= COVER
-
-
-def test_segmented_round_alternates_wait_and_unpack(tiny):
-    """A segmented round waits for and unpacks each span's masks in turn:
-    rasterize and dispatch once, then wait / unpack pairs (the annotated
-    frame's, one a span), then the full-size unpack, all on the calling
-    thread."""
-    call = _call("run_round", tiny, segments=2)
-    spans, thread = _traced(call)
-    names = [s[0] for s in spans if s[0] != "manet.round"]
-    n_spans = 2             # a bucket of 4 frames: 3 sweep steps in 2 spans
-    assert names == (["manet.round.rasterize", "manet.round.dispatch"]
-                     + ["manet.round.wait", "manet.round.unpack"]
-                     * (1 + n_spans) + ["manet.round.unpack"])
-    assert {s[3] for s in spans} == {thread}
-    assert _best_cover(call, "manet.round", spans) >= COVER
 
 
 @pytest.mark.parametrize("mask_stride", [1, 2])
