@@ -39,7 +39,10 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              480p sequence of 16 frames, 2 objects, 3 rounds; the launch
              counters, reset just before, must show 1 global- and 15
              local-matching launches per round and one kernel-7 launch
-             per GroupNorm call;
+             per GroupNorm call; the sweep's steps replay a CUDA graph
+             (`engine/round_graph.py`), and each captured step, replayed
+             under torch.profiler, must run on the card the kernel-2 and
+             kernel-7 launches its capture counted;
    serve_int8 — the same session with `matching_backend="int8"`, fed
              uint8 frames: 1 int8 global-matching launch and 15 local ones
              per round, none of the other global kernels;
@@ -1066,10 +1069,12 @@ def main_path(dev, model, phase: str, global_kernel: str, uint8: bool,
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     t0 = time.perf_counter()
+    OPEN_NORM_COUNTS.append(norm_calls)
     try:
         summary = ev.run_session(
             session, on_masks=lambda *a: masks_seen.append(a[-1]))
     finally:
+        OPEN_NORM_COUNTS.remove(norm_calls)
         for h in hooks:
             h.remove()
     torch.cuda.synchronize()
@@ -1099,6 +1104,7 @@ def main_path(dev, model, phase: str, global_kernel: str, uint8: bool,
             NORM_KERNEL: norm_calls[0]}
     require(launches == {k: want.get(k, 0) for k in launches},
             f"{phase} launches {launches}, expected {want}")
+    check_replays(ev, phase)
     n_obj = ds.num_objects(ds.sequences()[0])
     require(len(masks_seen) == rounds, "one mask submission per round")
     for m in masks_seen:
@@ -1120,16 +1126,18 @@ def main_path(dev, model, phase: str, global_kernel: str, uint8: bool,
 # counts while the path runs, or, for an exported graph, to the
 # `manet::group_norm` nodes it ran; the trainers' to 0.
 NORM_KERNEL = "group_norm"
+# The GroupNorm counts open now (`norm_calls`, `main_path`'s hooks). A
+# replayed CUDA graph (the round's sweep steps) runs no Python and calls no
+# hook: `count_graph_norms` has each replay add its step's calls to them.
+OPEN_NORM_COUNTS: list[list[int]] = []
 
 
 @contextlib.contextmanager
-def norm_calls():
-    """Count, while open, the GroupNorm calls on bf16 input with grad mode
-    off (a global forward pre-hook on every module). -> a one-item list,
-    the count."""
+def norm_hook(count: list[int]):
+    """Add to count[0], while open, the GroupNorm calls on bf16 input with
+    grad mode off (a global forward pre-hook on every module)."""
     from torch.nn.modules.module import register_module_forward_pre_hook
     from cvpr2020_manet_tpu_torch.models.layers import GroupNorm
-    count = [0]
 
     def hook(module, args):
         if (isinstance(module, GroupNorm) and not torch.is_grad_enabled()
@@ -1140,6 +1148,86 @@ def norm_calls():
         yield count
     finally:
         handle.remove()
+
+
+@contextlib.contextmanager
+def norm_calls():
+    """Count, while open, the GroupNorm calls on bf16 input with grad mode
+    off (`norm_hook`, and the replays of the round's step graphs). -> a
+    one-item list, the count."""
+    count = [0]
+    OPEN_NORM_COUNTS.append(count)
+    try:
+        with norm_hook(count):
+            yield count
+    finally:
+        OPEN_NORM_COUNTS.remove(count)
+
+
+def count_graph_norms() -> None:
+    """Have the round's step graphs (`engine/round_graph.py`) count their
+    GroupNorm calls into the open counts: the hooks see a graph's warm-up
+    step and its capture, neither of them a sweep step, so what the open
+    counts counted then is taken back out; the two run the same step, and
+    each replay adds half their calls."""
+    from cvpr2020_manet_tpu_torch.engine import round_graph
+
+    class NormCountedStep(round_graph.StepGraph):
+        def __init__(self, *args, **kw):
+            opened = [(c, c[0]) for c in OPEN_NORM_COUNTS]
+            made = [0]
+            with norm_hook(made):
+                super().__init__(*args, **kw)
+            for c, before in opened:
+                c[0] = before
+            require(made[0] % 2 == 0, f"a step graph's warm-up and capture "
+                    f"made {made[0]} GroupNorm calls, not twice a step's")
+            self.norms = made[0] // 2
+
+        def replay(self):
+            super().replay()
+            for c in OPEN_NORM_COUNTS:
+                c[0] += self.norms
+    round_graph.StepGraph = NormCountedStep
+
+
+def check_replays(ev, phase: str, reps: int = 3) -> None:
+    """Replay each of the Evaluator's captured sweep steps `reps` times
+    under torch.profiler: the card must run, a replay, kernel 2 and the two
+    kernels of kernel 7 as often as the capture counted their launches
+    (`StepGraph.counted`, which a replay adds to `build.LAUNCHES` with no
+    wrapper's call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cvpr2020_manet_tpu_torch.kernels import build
+    # device kernel -> the launch counters whose launches run it
+    runs = {"local_matching_tf32": ("local_matching",),
+            "group_norm_stats": (NORM_KERNEL,),
+            "group_norm_apply": (NORM_KERNEL,)}
+    graphs = ev._steps.graphs
+    require(len(graphs) > 0, f"{phase}: no sweep step was captured")
+    for key, graph in graphs.items():
+        require("local_matching" in graph.counted
+                and set(graph.counted) <= {"local_matching", NORM_KERNEL},
+                f"{phase}: step graph {key} counted {graph.counted}")
+        want = {k: reps * sum(graph.counted.get(c, 0) for c in cs)
+                for k, cs in runs.items()}
+        before = dict(build.LAUNCHES)
+        with torch.cuda.device(key[-1]):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    graph.replay()
+                torch.cuda.synchronize()
+        build.LAUNCHES.update(before)
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        seen = {k: sum(k in name for name in kernels) for k in runs}
+        log(f"[{phase}] step graph {key[:3]}: {reps} replays ran "
+            f"{len(kernels)} device kernels, {seen}; its capture counted "
+            f"{graph.counted} a step")
+        require(seen == want, f"{phase}: step graph {key} replays ran "
+                f"{seen}, its capture counted {want}")
 
 
 def with_norms(want: dict[str, int], norms: int) -> dict[str, int]:
@@ -3587,6 +3675,7 @@ def main() -> int:
 
     # [2] build
     secs = build.build_all()
+    count_graph_norms()
     log(f"[build] {len(build.KERNELS)} kernels ready in {secs:.1f} s "
         f"({len(build.BUILD_LOGS)} compiled now by nvcc, the others found "
         f"built from the same sources)")

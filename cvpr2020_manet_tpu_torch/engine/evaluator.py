@@ -18,7 +18,9 @@ over a padded frame bucket). Per round (`dispatch_round`):
 3. a (T-1)-step sweep visits frames annot+1 .. T-1, then annot-1 .. 0,
    resetting its carry to the interaction output where the backward sweep
    starts; each step runs local matching, min-fusion, the decomposed
-   propagation head and a softmax;
+   propagation head and a softmax. On a CUDA device each step replays a
+   CUDA graph captured once per step shape (`engine/round_graph.py`);
+   elsewhere the step runs as it is;
 4. probabilities are upsampled and argmaxed (`_labels_impl`), and every
    frame's labels stay on the device at the round's end; `collect_round`
    crops them to the real frames and the image, repeats them by
@@ -40,9 +42,11 @@ runs on the calling thread) cover each call end to end:
 `manet.start_sequence` = `manet.start.pad` (host padding) +
 `manet.start.encode` (upload, encoder, initial state); `manet.round` =
 `manet.round.rasterize` (scribbles to a padded raster) +
-`manet.round.dispatch` (all of `dispatch_round`) + `manet.round.wait` (the
-masks' crop and download) + `manet.round.unpack` (the host's share: the
-numpy view of the downloaded labels).
+`manet.round.dispatch` (all of `dispatch_round`; inside it a
+`manet.round.step` span a sweep step, and a `manet.round.replay` span in
+each replayed one) + `manet.round.wait` (the masks' crop and download) +
+`manet.round.unpack` (the host's share: the numpy view of the downloaded
+labels).
 
 The bucket policies the stream follows live here too: the object and
 live-page buckets, the spatial padding and the scribbles' max-pool.
@@ -62,6 +66,7 @@ from cvpr2020_manet_tpu_torch.config import Config, check_params_only
 from cvpr2020_manet_tpu_torch.data.davis import IMAGENET_MEAN
 from cvpr2020_manet_tpu_torch.device import resolve_device
 from cvpr2020_manet_tpu_torch.engine.labels import crop_labels, to_host
+from cvpr2020_manet_tpu_torch.engine.round_graph import SweepSteps
 from cvpr2020_manet_tpu_torch.interactive.scribbles import (
     annotated_frames, scribbles2mask)
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
@@ -179,6 +184,7 @@ class Evaluator:
         if cp_mesh is not None:
             check_cp_engine(cp_mesh, self.device, model.matching_backend,
                             "eval")
+        self._steps = SweepSteps(self.model)
         self.round_latencies: list[float] = []
         # (frame bucket, object bucket, seconds) per round: callers report
         # latency per bucket (DAVIS val spans the 32/64/104 frame buckets;
@@ -284,27 +290,12 @@ class Evaluator:
         else:
             gm_pre = model.match_prepared(query, head["bucketed"])
         gm_pre = gm_pre.reshape(t - 1, h, w, o)
-        ref_emb, ref_onehot = head["ref_emb"], head["ref_onehot"]
-        int_probs, int_mem = head["int_probs"], head["int_mem"]
-        probs_seq, g_seq = [], []
-        carry = int_probs
-        for j in range(t - 1):
-            f = int(frame[j])
-            if j == fwd_len:
-                carry = int_probs
-            logits, g_new = model.propagate(
-                feat[f], emb[f], ref_emb, ref_onehot, None, gmap[f],
-                emb[int(prev_frame[j])], carry, int_mem, head["obj_valid"],
-                gmap_override=gm_pre[j],
-                head_pre=head["head_fp"][f][None] + head["head_mp"])
-            carry = torch.softmax(logits, dim=-1)
-            probs_seq.append(carry)
-            g_seq.append(g_new)
+        probs_seq, g_seq = self._steps.run(feat, emb, gmap, gm_pre, head,
+                                           frame, prev_frame, fwd_len)
         # padding frames keep their state
         fv = frame_valid[frame_t][:, None, None, None]
-        probs[frame_t] = torch.where(fv, torch.stack(probs_seq),
-                                     probs[frame_t])
-        gmap[frame_t] = torch.where(fv, torch.stack(g_seq), gmap[frame_t])
+        probs[frame_t] = torch.where(fv, probs_seq, probs[frame_t])
+        gmap[frame_t] = torch.where(fv, g_seq, gmap[frame_t])
 
     @staticmethod
     def _labels_impl(probs, *, hw):

@@ -13,8 +13,10 @@ first use (or all at once, in parallel, through `build_all`). A missing
 nvcc or a failed build raises: the CUDA path has no fallback.
 
 `LAUNCHES` counts successful kernel launches per kernel (the keys of
-`KERNELS`); each wrapper adds one right after its launch and nowhere else,
-so a run can show which kernels its main path went through.
+`KERNELS`); each wrapper adds one right after its launch, so a run can
+show which kernels its main path went through. A replay of a captured
+CUDA graph runs no wrapper: `engine/round_graph.py` adds, at each replay,
+the launches its capture counted.
 """
 
 from __future__ import annotations

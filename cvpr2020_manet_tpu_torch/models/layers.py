@@ -34,6 +34,7 @@ written here from its algorithm (`_resize_general_bilinear`,
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -336,6 +337,22 @@ def _triangle_weights(src: int, dst: int) -> torch.Tensor:
     return torch.where(inside[None, :], weights, 0.0)
 
 
+def _cached_on(x: torch.Tensor) -> bool:
+    """Whether a general resize of x takes its constants from the caches
+    below: a plain tensor (not a tracer's) on a CUDA device."""
+    return x.device.type == "cuda" and type(x) is torch.Tensor
+
+
+@functools.lru_cache(maxsize=None)
+def _device_weights(src: int, dst: int, device: torch.device,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """`_triangle_weights(src, dst)` on a CUDA `device` in `dtype`, made
+    once: a step captured in a CUDA graph may not upload it. Made outside
+    inference mode, so that autograd may save it."""
+    with torch.inference_mode(False):
+        return _triangle_weights(src, dst).to(device=device, dtype=dtype)
+
+
 def _resize_general_bilinear(x: torch.Tensor, shape: tuple[int, int],
                              h_ax: int, w_ax: int) -> torch.Tensor:
     """`jax.image.resize(x, ..., "bilinear")`: each resized axis contracted
@@ -353,7 +370,9 @@ def _resize_general_bilinear(x: torch.Tensor, shape: tuple[int, int],
         src = x.shape[axis]
         if dst == src:
             continue
-        wm = _triangle_weights(src, dst).to(device=x.device, dtype=x.dtype)
+        wm = (_device_weights(src, dst, x.device, x.dtype)
+              if _cached_on(x) else
+              _triangle_weights(src, dst).to(device=x.device, dtype=x.dtype))
         y = torch.tensordot(y.movedim(axis, -1), wm, dims=1).movedim(-1, axis)
     return y
 
@@ -392,6 +411,21 @@ def _fast_axis_nearest(y: torch.Tensor, axis: int, dst: int):
     return None
 
 
+@functools.lru_cache(maxsize=None)
+def _nearest_index(src: int, dst: int, device: torch.device) -> torch.Tensor:
+    """`_source_index(src, dst)` on a CUDA `device`, made once (see
+    `_device_weights`)."""
+    with torch.inference_mode(False):
+        return _source_index(src, dst).to(device)
+
+
+def _source_index(src: int, dst: int) -> torch.Tensor:
+    """Source index floor(f32((i + 0.5) * src / dst)) of each of `dst`
+    outputs."""
+    return torch.floor((torch.arange(dst, dtype=torch.float32) + 0.5)
+                       * src / dst).long()
+
+
 def _resize_general_nearest(x: torch.Tensor,
                             shape: tuple[int, int]) -> torch.Tensor:
     """`jax.image.resize(x, ..., "nearest")`: along each resized axis,
@@ -401,9 +435,9 @@ def _resize_general_nearest(x: torch.Tensor,
         src = x.shape[axis]
         if dst == src:
             continue
-        idx = torch.floor((torch.arange(dst, dtype=torch.float32) + 0.5)
-                          * src / dst).long()
-        y = y.index_select(axis, idx.to(x.device))
+        idx = (_nearest_index(src, dst, x.device) if _cached_on(x)
+               else _source_index(src, dst).to(x.device))
+        y = y.index_select(axis, idx)
     return y
 
 

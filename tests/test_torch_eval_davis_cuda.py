@@ -21,7 +21,13 @@ probabilities lie within TIE, and there the card takes the CPU's labels.
 Sweep steps over the padding frames of a frame bucket are not held:
 their outputs are dropped (and GroupNorm over a constant frame is where
 the devices part most). Then the two reports' metric columns must be
-equal.
+equal. The lockstep reads and replaces the local labels inside each
+sweep step, which a replayed CUDA graph runs no Python for: on the card
+the steps run as they are here (`round_graph.captures` patched). A second
+test runs the same CLI on the card twice, its sweep steps run as they are
+and replayed from CUDA graphs as the CLI runs them, and the two reports
+must be equal (tests/test_torch_round_graph_cuda.py holds single rounds
+of the two bit for bit).
 
 The seeded weights give nearly flat probabilities: the top two lie
 within 2e-3 at about two thirds of the reference pixels, within 1e-5 at
@@ -38,7 +44,7 @@ import pytest
 import torch
 
 from _torch_davis_tree import write_davis_tree
-from cvpr2020_manet_tpu_torch.engine import eval_davis
+from cvpr2020_manet_tpu_torch.engine import eval_davis, round_graph
 from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
 from cvpr2020_manet_tpu_torch.interactive.session import (
     REPORT_COLUMNS, read_report_csv)
@@ -149,6 +155,7 @@ class _Lockstep:
             return self.labels("masks", masks, masks,
                                _mask_gaps(ev, state, image_hw))
 
+        monkeypatch.setattr(round_graph, "captures", lambda device: False)
         monkeypatch.setattr(Evaluator, "_interaction", interaction)
         monkeypatch.setattr(Evaluator, "_sweep_impl", sweep)
         monkeypatch.setattr(Evaluator, "run_round", run_round)
@@ -156,13 +163,25 @@ class _Lockstep:
         monkeypatch.setattr(MANet, "_local_matching", local)
 
 
-def test_tiny_cli_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
+def _cli_args(tmp_path):
+    """A two-sequence DAVIS tree (16 frames and 9, 2 objects each) and the
+    tiny CLI's arguments over it, 3 rounds of 2 scribble sets."""
     root = tmp_path / "DAVIS"
     write_davis_tree(str(root), (128, 192), (("a", 16, 2, 0), ("b", 9, 2, 1)),
                      2)
-    args = ["--davis_root", str(root), "--tiny", "--rounds", "3",
+    return ["--davis_root", str(root), "--tiny", "--rounds", "3",
             "--scribble_sets", "2", "--max_frames", "16",
             "--image_size", "128", "192"]
+
+
+def _rows(path):
+    """A report's metric columns, row by row."""
+    return [[r[c] for c in REPORT_COLUMNS[:-1]]
+            for r in read_report_csv(str(path))]
+
+
+def test_tiny_cli_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    args = _cli_args(tmp_path)
     lock = _Lockstep()
     lock.patch(monkeypatch)
     devices = []
@@ -180,8 +199,29 @@ def test_tiny_cli_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
               f"({ties / pixels:.4%}), {flips} labels flipped at ties, "
               f"the largest CPU gap at a flip {gap:.3g}")
         assert ties / pixels < MAX_TIE_SHARE, site
+    assert _rows(tmp_path / "cuda.csv") == _rows(tmp_path / "cpu.csv")
 
-    def rows(name):
-        return [[r[c] for c in REPORT_COLUMNS[:-1]]
-                for r in read_report_csv(str(tmp_path / name))]
-    assert rows("cuda.csv") == rows("cpu.csv")
+
+def test_tiny_cli_graphed_on_card_equals_eager(cuda, tmp_path, monkeypatch):
+    """The tiny (f32) CLI on the card, its sweep steps run as they are and
+    then replayed from CUDA graphs: the same report."""
+    args = _cli_args(tmp_path)
+    monkeypatch.setattr(eval_davis, "resolve_device", lambda device=None: cuda)
+    graphed_sweeps = []
+    real_run = round_graph.SweepSteps.run
+
+    def run(steps, *a, **kw):
+        graphed_sweeps.append(round_graph.captures(a[1].device))
+        return real_run(steps, *a, **kw)
+
+    monkeypatch.setattr(round_graph.SweepSteps, "run", run)
+    with monkeypatch.context() as m:
+        m.setattr(round_graph, "captures", lambda device: False)
+        eval_davis.main(args + ["--report", str(tmp_path / "eager.csv")])
+    n = len(graphed_sweeps)
+    eval_davis.main(args + ["--report", str(tmp_path / "graphed.csv")])
+    # 2 sequences x 2 scribble sets x 3 rounds, each sweep once
+    assert graphed_sweeps == [False] * n + [True] * n and n == 12
+    eager = _rows(tmp_path / "eager.csv")
+    graphed = _rows(tmp_path / "graphed.csv")
+    assert len(eager) == 2 * 2 * 3 * (16 + 9) and graphed == eager

@@ -4,8 +4,11 @@ tiny configuration.
 Under `torch.profiler`, each of `Evaluator.start_sequence`,
 `Evaluator.run_round` and `StreamingIVOS.observe` records its outer span
 once and its phases in order, nested in it, on the calling thread,
-covering at least 95% of it; with no profiler running, `annotate` hands
-back one shared no-op and builds no `record_function`."""
+covering at least 95% of it; a round's sweep steps are `manet.round.step`
+spans inside its dispatch, one a step, with a `manet.round.replay` span in
+each only where a step replays a captured graph (on the card, never on
+the CPU); with no profiler running, `annotate` hands back one shared no-op
+and builds no `record_function`."""
 
 import dataclasses
 import threading
@@ -21,6 +24,8 @@ from cvpr2020_manet_tpu_torch import profile_round
 from cvpr2020_manet_tpu_torch.config import tiny_test_config
 from cvpr2020_manet_tpu_torch.data import SyntheticDataset
 from cvpr2020_manet_tpu_torch.engine.evaluator import Evaluator
+from cvpr2020_manet_tpu_torch.engine.round_graph import (
+    REPLAY_SPAN, STEP_SPAN)
 from cvpr2020_manet_tpu_torch.engine.streaming import StreamingIVOS
 from cvpr2020_manet_tpu_torch.models import MANet
 from cvpr2020_manet_tpu_torch.utils import profiling
@@ -36,6 +41,10 @@ PHASES = {
                 ["manet.observe.ingest", "manet.observe.dispatch",
                  "manet.observe.wait"]),
 }
+# spans nested in a phase, and the phase that holds them
+NESTED = {STEP_SPAN: "manet.round.dispatch",
+          REPLAY_SPAN: "manet.round.dispatch"}
+STEPS = 3           # a round's sweep steps: the frame bucket is 4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -102,7 +111,8 @@ def _traced(call):
 def _cover(spans, outer_name):
     """The share of the outer span that its phases cover."""
     (_, a, b, _), = [s for s in spans if s[0] == outer_name]
-    return sum(e - s for n, s, e, _ in spans if n != outer_name) / (b - a)
+    return sum(e - s for n, s, e, _ in spans
+               if n != outer_name and n not in NESTED) / (b - a)
 
 
 def _best_cover(call, outer_name, spans):
@@ -126,13 +136,23 @@ def test_call_emits_its_phases_once_in_order(tiny, what):
     assert len(outer) == 1, spans
     _, a, b, tid = outer[0]
     assert tid == thread
-    inner = [s for s in spans if s[0] != outer_name]
+    inner = [s for s in spans if s[0] != outer_name and s[0] not in NESTED]
     assert [s[0] for s in inner] == phases
     for name, s, e, t in inner:
         assert a <= s <= e <= b, name
         assert t == thread, name
     # the phases follow one another: none overlaps the next
     assert all(x[2] <= y[1] for x, y in zip(inner, inner[1:]))
+    nested = [s for s in spans if s[0] in NESTED]
+    if what == "run_round":
+        # one step span a sweep step, none replayed on the CPU
+        assert [s[0] for s in nested] == [STEP_SPAN] * STEPS
+    assert not nested or what == "run_round"
+    for name, s, e, t in nested:
+        (_, pa, pb, _), = [x for x in inner if x[0] == NESTED[name]]
+        assert pa <= s <= e <= pb, name
+        assert t == thread, name
+    assert all(x[2] <= y[1] for x, y in zip(nested, nested[1:]))
     assert _best_cover(call, outer_name, spans) >= COVER
 
 
@@ -156,7 +176,7 @@ def test_monolithic_round_waits_then_unpacks(tiny, mask_stride):
         got["masks"] = ev.run_round(st, scr, frames.shape[1:3], 2)
 
     spans, thread = _traced(call)
-    names = [s[0] for s in spans]
+    names = [s[0] for s in spans if s[0] not in NESTED]
     assert names == ["manet.round"] + PHASES["run_round"][1]
     assert {s[3] for s in spans} == {thread}
     (_, a, b, _), = [s for s in spans if s[0] == "manet.round"]
@@ -237,9 +257,10 @@ def test_profile_round_reads_the_phase_spans(tiny):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         call()
     ms = profile_round.phase_ms(prof)
-    assert set(ms) == {"manet.round"} | set(PHASES["run_round"][1])
-    assert sum(v for k, v in ms.items() if k != "manet.round") \
-        <= ms["manet.round"]
+    assert set(ms) == {"manet.round", STEP_SPAN} | set(PHASES["run_round"][1])
+    assert sum(v for k, v in ms.items()
+               if k != "manet.round" and k not in NESTED) <= ms["manet.round"]
+    assert ms[STEP_SPAN] <= ms["manet.round.dispatch"]
     assert profile_round.device_intervals(prof) == []
     # a span's device-side shadow (on the card) is neither host time nor
     # device work
