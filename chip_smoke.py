@@ -22,10 +22,12 @@ imports nothing of JAX. Phases (any failure exits non-zero):
              memory page and at the batch engine's launch (with its key
              splits), kernel 1's f32 variant (3xTF32)
              at that page (the f32 stream's shape), kernel 2 at the 1080p
-             stream's 136 x 240 beside its 480p row, the argmin kernels at
-             the training shapes, with their winners and the gradients of
-             the trainable Functions, kernel 4 with its key splits and
-             with exact ties across them (kernels 2, 4 and 5, kernel 4's
+             stream's 136 x 240 beside its 480p row, kernels 1 (bf16) and
+             2 at FEELVOS's batch step (a 480p frame's 120 x 216 grid
+             against another, in the 9-object bucket, window 15), the
+             argmin kernels at the training shapes, with their winners and
+             the gradients of the trainable Functions, kernel 4 with its
+             key splits and with exact ties across them (kernels 2, 4 and 5, kernel 4's
              library call and kernel 3 at the batch's shape, a fraction of
              a millisecond each, timed over runs of back-to-back calls);
              kernel 7 (GroupNorm with ReLU, and the residual at layer
@@ -96,7 +98,10 @@ imports nothing of JAX. Phases (any failure exits non-zero):
    batch   — `BatchPropagator`, 4 clips x 16 frames at 480p, int8 and f32,
              rgb and yuv420 ingest, through the batch CLI's timing loops
              (`timed_batches`): B (T - 1) = 60 launches of the global
-             kernel and of the local one per batch;
+             kernel and of the local one per batch; then FEELVOS at its
+             published widths (random weights) on 4 clips x 16 frames of
+             5 objects from YUV: 60 kernel-1 and 60 kernel-2 launches a
+             batch and no GroupNorm call;
    export  — the host time each `manet::*` custom op adds to a call of
              its launcher; serving artifacts on torch.export
              (`utils/export.py`): the export CLI on the card at its
@@ -421,10 +426,9 @@ def cross_term_ms(mm, q: torch.Tensor, kt: torch.Tensor, out_bytes: int,
 def kernel_global(dev, nq: int, nk: int, c_real: int, c: int, o: int,
                   dtype: torch.dtype, what: str):
     """Kernel 1 at one of its paths' shapes: Nq queries against Nk
-    reference rows of `dtype` (bf16: the round, on the bf16 tensor cores;
-    f32: the stream's f32 memory, 3xTF32 on the tensor cores), 2 live
-    objects + background in an O=4 bucket (the last object has no
-    pixels). The f32 bound is 3 TF32 products per pair; the f32 FMA bound
+    reference rows of `dtype` (bf16: the round and the batch, on the bf16
+    tensor cores; f32: the stream's f32 memory, 3xTF32 on the tensor
+    cores), O - 1 live objects + background in an O bucket. The f32 bound is 3 TF32 products per pair; the f32 FMA bound
     (the CUDA cores) is logged beside it."""
     from cvpr2020_manet_tpu_torch.ops.global_matching_cuda import (
         global_matching_prepared, global_matching_prepared_plain, prepare_ref)
@@ -547,8 +551,8 @@ def kernel_global_int8(dev, nq: int, nk: int, c_real: int, c: int, o: int,
 
 def kernel_local(dev, hw: tuple[int, int], c_real: int, c: int, o: int,
                  window: int, what: str):
-    """Kernel 2 at one of its paths' shapes: one half-resolution frame,
-    f32. The bound is 3 TF32 products per in-window pair on the tensor
+    """Kernel 2 at one of its paths' shapes: one frame's grid (MANet's
+    half resolution, FEELVOS's full stride-4 grid), f32. The bound is 3 TF32 products per in-window pair on the tensor
     cores; the bound of the pairs the kernel computes (each query row's
     16-query tiles against its n8 key tiles) and the f32 FMA bound are
     logged beside it."""
@@ -2242,12 +2246,15 @@ def cp_phase(dev, model) -> dict:
 
 
 def batch_phase(dev, model, ingest: str, batch=4, n_frames=16,
-                image_size=(480, 864), batches=3) -> None:
-    """BatchPropagator on `batches` synthetic batches of `batch` clips: one
-    warm-up batch, then the CLI's timing loops (`timed_batches`: serial
-    and pipelined frames/s, planar YUV made before the clock) over the
-    others; the launch counters must show B (T - 1) launches of the global
-    and of the local kernel per batch."""
+                image_size=(480, 864), batches=3, objects=2,
+                group_norms=True) -> None:
+    """BatchPropagator on `batches` synthetic batches of `batch` clips of
+    `objects` objects: one warm-up batch, then the CLI's timing loops
+    (`timed_batches`: serial and pipelined frames/s, planar YUV made
+    before the clock) over the others; the launch counters must show B
+    (T - 1) launches of the global and of the local kernel per batch, and
+    one of kernel 7 a GroupNorm call where the model has GroupNorms
+    (`group_norms`), else none."""
     from cvpr2020_manet_tpu_torch.data import SyntheticDataset
     from cvpr2020_manet_tpu_torch.engine.propagate_batch import (
         BatchPropagator, timed_batches)
@@ -2256,7 +2263,7 @@ def batch_phase(dev, model, ingest: str, batch=4, n_frames=16,
     cfg = Config(model=model.cfg, eval=EvalConfig(image_size=image_size))
     prop = BatchPropagator(cfg, model, ingest=ingest, device=dev)
     ds = SyntheticDataset(image_size=image_size, num_frames=n_frames,
-                          num_objects=2, num_sequences=batch * batches,
+                          num_objects=objects, num_sequences=batch * batches,
                           scribble_sets=1)
     names = ds.sequences()
     data = []
@@ -2265,8 +2272,11 @@ def batch_phase(dev, model, ingest: str, batch=4, n_frames=16,
         frames = np.stack([(np.clip(ds.images(q), 0, 1) * 255).astype(np.uint8)
                            for q in seqs])
         first = np.stack([ds.gt_masks(q)[0, ::4, ::4] for q in seqs])
-        data.append((frames, first.astype(np.int32), np.full(batch, 2)))
-    gkernel = ("global_matching_int8" if model.matching_backend == "int8"
+        data.append((frames, first.astype(np.int32),
+                     np.full(batch, objects)))
+    backend = getattr(model, "matching_backend", "auto")
+    arch = model.cfg.arch
+    gkernel = ("global_matching_int8" if backend == "int8"
                else "global_matching")
     per_batch = {gkernel: batch * (n_frames - 1),
                  "local_matching": batch * (n_frames - 1)}
@@ -2275,23 +2285,41 @@ def batch_phase(dev, model, ingest: str, batch=4, n_frames=16,
     (serial_s, pipe_s, labels), n, norms = launches_delta(
         lambda: timed_batches(prop, timed))
     runs = 2 * len(timed)                          # serial and pipelined
-    require(norms > 0 and n == with_norms(
+    require((norms > 0) == group_norms and n == with_norms(
         {k: v * runs for k, v in per_batch.items()}, norms),
-            f"{runs} batches launched {n}, expected {per_batch} each and "
-            f"{norms} of kernel 7")
+            f"{arch}: {runs} batches launched {n}, expected {per_batch} each "
+            f"and {norms} of kernel 7")
     for (frames, first, _), lab in zip(timed, labels):
-        require(lab.shape == frames.shape[:4] and lab.max() <= 2,
+        require(lab.shape == frames.shape[:4] and lab.max() <= objects,
                 "batch labels")
         seed_up = np.repeat(np.repeat(first, 4, axis=1), 4, axis=2)
         require(float((lab[:, 0] == seed_up).mean()) > 0.95,
                 "frame 0 reproduces the first mask")
     fps = batch * n_frames / statistics.median(serial_s)
-    log(f"[batch] {model.matching_backend!r} matching, {ingest} ingest, "
-        f"{batch} x {n_frames} frames at {image_size[0]}x{image_size[1]}: "
-        f"serial {fps:.1f} frames/s (batches "
-        f"{', '.join(f'{t * 1e3:.0f}' for t in serial_s)} ms), pipelined "
-        f"{batch * n_frames / pipe_s:.1f} frames/s; launches {n} over "
-        f"{len(timed)} serial and {len(timed)} pipelined batches")
+    log(f"[batch] {arch}, {backend!r} matching, {ingest} ingest, {batch} x "
+        f"{n_frames} frames of {objects} objects at "
+        f"{image_size[0]}x{image_size[1]}: serial {fps:.1f} frames/s "
+        f"(batches {', '.join(f'{t * 1e3:.0f}' for t in serial_s)} ms), "
+        f"pipelined {batch * n_frames / pipe_s:.1f} frames/s; launches {n} "
+        f"over {len(timed)} serial and {len(timed)} pipelined batches")
+
+
+def feelvos_phase(dev) -> None:
+    """FEELVOS at its published widths (`feelvos_config()`: Xception-65,
+    the separable 7x7 head, frozen BatchNorm; random weights from a seed,
+    the norms at the identity) through `batch_phase`: 4 clips x 16 frames
+    of 5 objects (object bucket 9) at 480p from YUV 4:2:0, B (T - 1)
+    launches of kernel 1 and of kernel 2 (the full stride-4 grid) a batch
+    and no GroupNorm call."""
+    from cvpr2020_manet_tpu_torch.config import feelvos_config
+    from cvpr2020_manet_tpu_torch.models.feelvos import FEELVOS
+    t0 = time.perf_counter()
+    model = FEELVOS(feelvos_config().model, device=dev, seed=0)
+    log(f"[batch] FEELVOS on {dev} in {time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in model.parameters())} params)")
+    batch_phase(dev, model, "yuv420", objects=5, group_norms=False)
+    del model
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------- #
@@ -3703,8 +3731,15 @@ def main() -> int:
                  page_1080p)}
     pages["local_matching"] = kernel_local(
         dev, (136, 240), 100, 128, 4, 15, "1080p stream, 1 launch per observe")
+    # FEELVOS's batch step: a 480p frame at the full stride-4 grid, in the
+    # 9-object bucket, against its clip's frame 0 and its frame t-1
+    pages["global_matching (feelvos)"] = kernel_global(
+        dev, 120 * 216, 120 * 216, 100, 128, 9, torch.bfloat16,
+        "feelvos 480p batch: one frame against frame 0")
+    pages["local_matching (feelvos)"] = kernel_local(
+        dev, (120, 216), 100, 128, 9, 15, "feelvos 480p batch")
     for name, page in pages.items():
-        log(f"[kernels] {name} at the 1080p stream's shape: " + json.dumps(
+        log(f"[kernels] {name} at its path's shape: " + json.dumps(
             {k: page[k] for k in ("max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms",
                                   "splits", "epilogue_floor_ms")
@@ -3767,6 +3802,7 @@ def main() -> int:
         for ingest in ("rgb", "yuv420"):
             batch_phase(dev, m, ingest)
     torch.cuda.empty_cache()
+    feelvos_phase(dev)
     export_phase(dev, model, model_i8)
     del model, model_i8
     torch.cuda.empty_cache()

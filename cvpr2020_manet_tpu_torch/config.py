@@ -17,10 +17,20 @@ import dataclasses
 from typing import Tuple
 
 
+ARCHS = ("manet", "feelvos")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Model dims (SURVEY.md §3.2)."""
 
+    # The architecture: "manet" (the JAX package's model) or "feelvos"
+    # (FEELVOS, arXiv:1902.09513, the port's own: Xception-65
+    # DeepLabv3+ and the separable 7x7 dynamic head, frozen BatchNorm;
+    # models/feelvos.py). FEELVOS reads the widths below except
+    # backbone_depths / backbone_width, and has no interaction head or
+    # memory (ma_channels unused).
+    arch: str = "manet"
     # Backbone: resnet stage depths. (3, 4, 23, 3) == ResNet-101 (reference
     # backbone); (1, 1, 1, 1) is the tiny variant used by the tests.
     backbone_depths: Tuple[int, ...] = (3, 4, 23, 3)
@@ -54,6 +64,8 @@ class ModelConfig:
     wrong_label_padding_distance: float = 1e8
 
     def __post_init__(self):
+        if self.arch not in ARCHS:
+            raise ValueError(f"arch={self.arch!r}: one of {ARCHS}")
         # The DeepLabV3+ decoder output is architecturally stride-4; every
         # engine sizes its state grids at H/4 x W/4 while scribble
         # downsampling reads this field.
@@ -192,3 +204,23 @@ def tiny_test_config() -> Config:
         train=TrainConfig(crop_size=(32, 32), batch_size=2, total_steps=10),
         eval=EvalConfig(image_size=(32, 48), max_frames=4),
     )
+
+
+def feelvos_config(tiny: bool = False) -> Config:
+    """FEELVOS at its published widths (DeepLabv3+ ASPP and decoder 256,
+    low level 48, embedding 100 padded to 128, head 256, local matching
+    at stride 4 with window 15, frozen BatchNorm, bf16) at DAVIS 480p;
+    `tiny`: the CPU tests' size (Xception-65 whole, 32-wide ASPP,
+    decoder and head, f32)."""
+    if tiny:
+        return Config(
+            model=ModelConfig(
+                arch="feelvos", aspp_channels=32,
+                decoder_channels=32, low_level_channels=8,
+                embedding_dim=16, embedding_dim_padded=16, head_channels=32,
+                norm="frozen", head_norm="frozen", local_window=2,
+                local_downsample=1, max_objects=2, dtype="float32"),
+            eval=EvalConfig(image_size=(32, 48), max_frames=4))
+    return Config(model=ModelConfig(
+        arch="feelvos", decoder_channels=256, head_channels=256,
+        norm="frozen", head_norm="frozen", local_downsample=1))

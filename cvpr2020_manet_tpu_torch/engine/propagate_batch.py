@@ -13,31 +13,48 @@ caller can interleave:
   copy overlaps the previous chunk's encoder work; `threads > 1` issues
   the copies from a thread pool;
 - `dispatch`: one sequence after another, each in its own object bucket:
-  seed the interaction memory from the first mask, then a Python loop of
-  `model.propagate` over frames 1 .. T-1 (the matching reference is frame
-  0, prepared once per sequence; one global- and one local-matching
-  launch per frame), then upsample,
-  argmax and bit-pack; each sequence's packed masks go to the download
-  pool while the next sequence computes;
+  the model's `start_clip` from the first mask, then one Python loop
+  over frames 1 .. T-1 (the matching reference is frame 0, prepared once
+  per sequence; one global- and one local-matching launch per frame, then
+  the model's `clip_head` and a softmax), then upsample, argmax and
+  bit-pack; each sequence's packed masks go to the download pool while
+  the next sequence computes;
 - `drain`: wait for the downloads and unpack.
 
+It takes either architecture of `ModelConfig.arch`, through the same
+methods (`extract_features`, `prepare_ref`, `match_prepared`,
+`start_clip`, `local_map`, `clip_head`):
+
+- "manet" (`models/manet.MANet`): `start_clip` seeds the interaction
+  memory from the first mask (the interaction head, as if the mask were
+  the first round's scribbles) and the decomposed head's per-frame
+  feature and per-clip memory conv0 parts; local matching at
+  `local_downsample`;
+- "feelvos" (`models/feelvos.FEELVOS`): no memory; `start_clip` computes
+  the features' share of the separable head's first layer, once a frame;
+  local matching at stride 4.
+
 `dispatch(..., probs_of=clips)` also hands back, from the same call, the
-state of the clips it names: each one's per-frame probabilities (T, hh,
-ww, O) at the feature stride and its seeded interaction memory, on the
-device, as computed for its labels (a checker steps a reference from
-them). Without it nothing is kept beyond the packed labels.
+state of the clips it names, on the device, as computed for their labels
+(a checker steps a reference from them): each one's per-frame
+probabilities (T, hh, ww, O) at the feature stride (`"probs"`), and for
+MANet its seeded interaction memory (`"int_mem"`; FEELVOS has none).
+Without it nothing is kept beyond the packed labels.
 
 Phase spans (`utils/profiling.annotate`; recorded only while a profiler
 runs on the calling thread): `manet.batch.upload` (the chunks' copies,
 issued on the calling thread or waited for from the pool, and the
-encoder's enqueue), `manet.batch.dispatch` (all of `dispatch`), with one
-`manet.batch.clip` a clip (seeding, the sweep, the upsample, argmax and
-pack, and the hand-off to the download pool), and `manet.batch.drain`
-(the wait for the downloads and the host unpack).
+encoder's enqueue), with one `manet.batch.encode` an encoder call (the
+model's `extract_features`, after the input's normalization);
+`manet.batch.dispatch` (all of `dispatch`), with one `manet.batch.clip`
+a clip (its start, the sweep, the upsample, argmax and pack, and the
+hand-off to the download pool), in which `manet.batch.head` holds each
+head call (`start_clip`, and each step's `clip_head`); and
+`manet.batch.drain` (the wait for the downloads and the host unpack).
 
     python -m cvpr2020_manet_tpu_torch.engine.propagate_batch \\
-        --batch 4 --frames 16 [--matching_int8] [--ingest yuv420] \\
-        [--dataset davis|ytvos --data_root /data/DAVIS]
+        --batch 4 --frames 16 [--arch manet|feelvos] [--matching_int8] \\
+        [--ingest yuv420] [--dataset davis|ytvos --data_root /data/DAVIS]
 
 prints one JSON line (`batched_propagation_fps`). It runs on `cuda`.
 """
@@ -56,6 +73,7 @@ from cvpr2020_manet_tpu_torch.device import resolve_device, synchronize
 from cvpr2020_manet_tpu_torch.engine.evaluator import object_bucket_for
 from cvpr2020_manet_tpu_torch.engine.labels import (
     FETCH_POOL, bucket_mask_bits, download, pack_labels, unpack_labels)
+from cvpr2020_manet_tpu_torch.models.feelvos import FEELVOS
 from cvpr2020_manet_tpu_torch.models.layers import resize_bilinear
 from cvpr2020_manet_tpu_torch.models.manet import MANet
 from cvpr2020_manet_tpu_torch.utils.ingest import (
@@ -70,8 +88,8 @@ CHUNK = 8   # frames per encoder call
 class BatchPropagator:
     """Propagation of first-frame masks through batches of clips."""
 
-    def __init__(self, cfg: Config, model: MANet, ingest: str = "rgb",
-                 device=None):
+    def __init__(self, cfg: Config, model: MANet | FEELVOS,
+                 ingest: str = "rgb", device=None):
         if ingest not in ("rgb", "yuv420"):
             raise ValueError(f"unknown ingest format {ingest!r}")
         check_params_only(model.cfg, "BatchPropagator")
@@ -92,7 +110,8 @@ class BatchPropagator:
             x = preprocess_yuv420(*frames)
         else:
             x = preprocess_frames(frames)
-        return self.model.extract_features(x)
+        with annotate("manet.batch.encode"):
+            return self.model.extract_features(x)
 
     @torch.inference_mode()
     def _one_seq(self, feat_s, emb_s, first_mask, ov, o: int,
@@ -100,44 +119,34 @@ class BatchPropagator:
         """One sequence: (T, hh, ww, *) features and embeddings plus the
         first frame's labels (hh, ww) -> (bit-packed argmax label maps
         (T, H, W * bits / 8) on the device, and with `keep` its state:
-        {"probs": (T, hh, ww, o) f32, "int_mem": (o, hh, ww, Cma)}, else
-        None). `o` is its object bucket."""
+        {"probs": (T, hh, ww, o) f32} and what the model's `start_clip`
+        hands back (MANet: "int_mem" (o, hh, ww, Cma)), else None). `o`
+        is its object bucket."""
         model = self.model
         t, hh, ww, _ = feat_s.shape
         s = self.cfg.model.feature_stride
         first_oh = F.one_hot(first_mask.long(), o).float() * ov
-        # seed the interaction memory from the given mask, which stands in
-        # for the first round's scribbles
-        pos = first_oh
-        neg = (pos.amax(dim=-1, keepdim=True) - pos) * ov
-        int_feats, _ = model.interact(feat_s[0], pos, neg, first_oh)
-        int_mem = model.aggregate_memory(int_feats, torch.zeros_like(int_feats),
-                                         True)
+        with annotate("manet.batch.head"):
+            clip, clip_state = model.start_clip(feat_s, first_oh, ov)
         # the matching reference is frame 0 for every step: bucketed (and
         # in int8 quantized) once per sequence
         ce = emb_s.shape[-1]
         bucketed = model.prepare_ref(emb_s[0].reshape(-1, ce),
                                      first_oh.reshape(-1, o))
-        # decomposed head stage 1: the per-frame feature and the per-clip
-        # memory conv0 contributions, outside the temporal loop
-        head_fp = model.head_feat_contrib(feat_s)
-        head_mp = model.head_mem_contrib(int_mem)
-        no_gmap = torch.ones((hh, ww, o), dtype=torch.float32,
-                             device=feat_s.device)
         probs, e_prev = first_oh, emb_s[0]
         probs_seq = [first_oh]
         for i in range(1, t):
             gm = model.match_prepared(emb_s[i].reshape(-1, ce), bucketed)
-            logits, _ = model.propagate(
-                feat_s[i], emb_s[i], None, None, None, no_gmap, e_prev,
-                probs, int_mem, ov, gmap_override=gm.reshape(hh, ww, o),
-                head_pre=head_fp[i][None] + head_mp)
+            lm = model.local_map(emb_s[i], e_prev, probs)
+            with annotate("manet.batch.head"):
+                logits = model.clip_head(clip, i, feat_s[i],
+                                         gm.reshape(hh, ww, o), lm, probs)
             probs, e_prev = torch.softmax(logits, dim=-1), emb_s[i]
             probs_seq.append(probs)
         probs_seq = torch.stack(probs_seq)
         up = resize_bilinear(probs_seq, (hh * s, ww * s))
         lab = up.argmax(dim=-1).to(torch.uint8)
-        state = {"probs": probs_seq, "int_mem": int_mem} if keep else None
+        state = {"probs": probs_seq, **clip_state} if keep else None
         return pack_labels(lab, bucket_mask_bits(o)), state
 
     # -- pipeline pieces ------------------------------------------------- #
@@ -198,9 +207,9 @@ class BatchPropagator:
         """Propagate every sequence, each in its own object bucket, and
         hand its packed masks to the download pool. -> (download futures,
         bits per sequence); with `probs_of` (clip indices) a third item,
-        {clip: {"probs": (T, hh, ww, O) f32, "int_mem": (O, hh, ww, Cma)}}
-        on the device: the state those clips' labels were computed
-        from."""
+        {clip: {"probs": (T, hh, ww, O) f32, and for MANet "int_mem" (O,
+        hh, ww, Cma)}} on the device: the state those clips' labels were
+        computed from."""
         with annotate("manet.batch.dispatch"):
             b, t = batch_shape
             n_obj = [int(n) for n in np.asarray(num_objects)]
@@ -355,7 +364,8 @@ def main(argv=None):
     import argparse
     import json
 
-    from cvpr2020_manet_tpu_torch.config import tiny_test_config
+    from cvpr2020_manet_tpu_torch.config import (
+        feelvos_config, tiny_test_config)
     from cvpr2020_manet_tpu_torch.data import SyntheticDataset
     from cvpr2020_manet_tpu_torch.utils.checkpoint import load_release
 
@@ -378,10 +388,21 @@ def main(argv=None):
     p.add_argument("--matching_int8", action="store_true",
                    help="int8 global matching (the serving mode), through "
                         "the model's matching backend")
+    p.add_argument("--arch", choices=["manet", "feelvos"], default="manet",
+                   help="manet: MANet (ResNet-101 DeepLabv3+, interaction "
+                        "memory, dense heads); feelvos: FEELVOS (Xception-65 "
+                        "DeepLabv3+, separable 7x7 head, frozen BatchNorm, "
+                        "no memory)")
     p.add_argument("--tiny", action="store_true")
     args = p.parse_args(argv)
 
-    cfg = tiny_test_config() if args.tiny else Config()
+    if args.arch == "feelvos":
+        if args.matching_int8:
+            raise SystemExit("--matching_int8 is MANet's (FEELVOS matches "
+                             "in bf16)")
+        cfg = feelvos_config(tiny=args.tiny)
+    else:
+        cfg = tiny_test_config() if args.tiny else Config()
     image_hw = tuple(args.image_size) if args.image_size \
         else cfg.eval.image_size
     h_img = image_hw[0] + (-image_hw[0]) % cfg.eval.pad_to
@@ -404,8 +425,11 @@ def main(argv=None):
         gen = _load_batches(ds, args.batch, s)
 
     device = resolve_device(None)
-    model = MANet(cfg.model, device=device, matching_backend=(
-        "int8" if args.matching_int8 else "auto"))
+    if args.arch == "feelvos":
+        model = FEELVOS(cfg.model, device=device)
+    else:
+        model = MANet(cfg.model, device=device, matching_backend=(
+            "int8" if args.matching_int8 else "auto"))
     if args.checkpoint:
         model.load_state_dict(load_release(model.state_dict(),
                                            args.checkpoint))

@@ -4,6 +4,9 @@ Port of the JAX package's `models/heads.py`. The object axis is folded
 into the batch axis, so one set of weights serves any object count. The
 `logit` convs run in float32 even when the model runs in bf16, and the MA
 memory blend promotes to float32 (the memory itself is kept in f32).
+
+`SeparableSegHead` is FEELVOS's dynamic segmentation head (the port's
+own, `ModelConfig.arch` "feelvos").
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvpr2020_manet_tpu_torch.models.layers import Conv, make_norm
+from cvpr2020_manet_tpu_torch.models.layers import (
+    Conv, FrozenAffine, SeparableConv, make_norm)
 
 
 class ConvStack(nn.Module):
@@ -90,3 +94,61 @@ class MemoryAggregator(nn.Module):
         gate_in = torch.cat([f_r.to(self.dtype), m_prev.to(self.dtype)], dim=1)
         w = torch.sigmoid(self.gate(gate_in))
         return w * f_r + (1.0 - w) * m_prev
+
+
+def _affine(norm: FrozenAffine, x: torch.Tensor, lo: int, hi: int):
+    """`norm` over its channels [lo, hi), which x (N, hi - lo, h, w)
+    holds."""
+    dt = norm.dtype
+    return (x * norm.weight[lo:hi].to(dt)[:, None, None]
+            + norm.bias[lo:hi].to(dt)[:, None, None]).to(x.dtype)
+
+
+class SeparableSegHead(nn.Module):
+    """FEELVOS's dynamic segmentation head, once per object with shared
+    weights: [F, G_o, L_o, P_o] (O, Cf + 3, h, w) -> logit (O, 1, h, w)
+    f32, through `depth` separable layers `S(channels, kernel, 1,
+    inner_relu)` and a 1x1 to one logit with a bias in f32. Frozen norms
+    only.
+
+    The first layer is per channel up to its pointwise conv, and that conv
+    is linear, so the feature channels' part (`feature_part`, once a
+    frame) and the three map channels' part (in `forward`, once an
+    object) add up to its pre-norm output."""
+
+    def __init__(self, in_ch: int, channels: int, depth: int = 4,
+                 kernel: int = 7, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.layers = nn.ModuleList(
+            SeparableConv(in_ch if i == 0 else channels, channels, kernel,
+                          norm="frozen", dtype=dtype)
+            for i in range(depth))
+        self.logit = Conv(channels, 1, 1, bias=True, dtype=torch.float32)
+
+    def _first(self, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """The first layer's input channels [lo, hi) (x holds just those)
+        through its depthwise conv, norm and ReLU, and their share of its
+        pointwise conv."""
+        layer = self.layers[0]
+        dw, dt = layer.dw, self.dtype
+        y = F.conv2d(x.to(dt), dw.weight[lo:hi].to(dt), None, dw.stride,
+                     dw.padding, dw.dilation, hi - lo)
+        y = F.relu(_affine(layer.dw_norm, y, lo, hi))
+        return F.conv2d(y, layer.pw.weight[:, lo:hi].to(dt))
+
+    def feature_part(self, feat: torch.Tensor) -> torch.Tensor:
+        """(T, Cf, h, w) features -> their share of the first layer's
+        pre-norm output (T, C, h, w)."""
+        return self._first(feat, 0, feat.shape[1])
+
+    def forward(self, maps: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
+        """maps: the three map channels (O, 3, h, w); pre: a frame's
+        `feature_part`, broadcast over the objects."""
+        first = self.layers[0]
+        cf = first.dw.weight.shape[0] - maps.shape[1]
+        x = first.pw_norm(self._first(maps, cf, cf + maps.shape[1]) + pre,
+                          relu=True)
+        for layer in self.layers[1:]:
+            x = layer(x)
+        return self.logit(x)

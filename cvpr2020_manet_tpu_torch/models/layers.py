@@ -45,25 +45,66 @@ from cvpr2020_manet_tpu_torch.ops.group_norm_cuda import group_norm
 
 
 class Conv(nn.Module):
-    """2-D convolution with f32 parameters computed in `dtype` (NCHW)."""
+    """2-D convolution with f32 parameters computed in `dtype` (NCHW);
+    `groups=in_ch` makes it depthwise (weight (in_ch, 1, k, k))."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, *,
                  stride: int = 1, padding: int | None = None,
-                 dilation: int = 1, bias: bool = False,
+                 dilation: int = 1, bias: bool = False, groups: int = 1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride, self.dilation, self.dtype = stride, dilation, dtype
+        self.groups = groups
         # Flax 'SAME' at stride 1 is symmetric; 1x1 convs pad nothing
         self.padding = dilation * (kernel - 1) // 2 if padding is None \
             else padding
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups,
+                                               kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
-                        self.padding, self.dilation)
+                        self.padding, self.dilation, self.groups)
+
+
+class SeparableConv(nn.Module):
+    """DeepLab's depthwise-separable layer `S(out_ch, k, rate,
+    inner_relu)`: a k x k depthwise conv at dilation `rate` (and
+    `stride`), a norm, a 1 x 1 pointwise conv to `out_ch`, a norm, in
+    one of DeepLab's two placements of the activation:
+
+    - `inner_relu` false (Xception's entry and middle flows,
+      `xception_module`): ReLU on the input, then depthwise, norm,
+      pointwise, norm;
+    - `inner_relu` true (the exit flow's last block, ASPP, the decoder,
+      FEELVOS's head: `split_separable_conv2d`): depthwise, norm, ReLU,
+      pointwise, norm, ReLU.
+
+    `out_norm=False` (FEELVOS's embedding): the pointwise conv takes a
+    bias and nothing follows it. Padding is symmetric, `rate * (k - 1) //
+    2` a side (DeepLab's explicit padding at stride 2)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, *,
+                 rate: int = 1, stride: int = 1, inner_relu: bool = True,
+                 out_norm: bool = True, norm: str = "frozen",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.inner_relu = inner_relu
+        self.dw = Conv(in_ch, in_ch, kernel, stride=stride, dilation=rate,
+                       groups=in_ch, dtype=dtype)
+        self.dw_norm = make_norm(norm, dtype)(in_ch)
+        self.pw = Conv(in_ch, out_ch, 1, bias=not out_norm, dtype=dtype)
+        self.pw_norm = make_norm(norm, dtype)(out_ch) if out_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.inner_relu:
+            x = F.relu(x)
+        y = self.pw(self.dw_norm(self.dw(x), relu=self.inner_relu))
+        if self.pw_norm is None:
+            return y
+        return self.pw_norm(y, relu=self.inner_relu)
 
 
 class _Norm(nn.Module):

@@ -82,6 +82,8 @@ class MANet(nn.Module):
         same name does. `matching_backend`: "auto" (the full-precision
         kernels) or "int8" (int8 global matching for serving)."""
         super().__init__()
+        if cfg.arch != "manet":
+            raise ValueError(f"MANet takes arch 'manet', not {cfg.arch!r}")
         if matching_backend not in MATCHING_BACKENDS:
             raise ValueError(f"matching_backend={matching_backend!r}: one of "
                              f"{MATCHING_BACKENDS}")
@@ -170,34 +172,22 @@ class MANet(nn.Module):
 
         Returns (logits (h, w, O) f32, fused global map (h, w, O)).
         """
-        cfg = self.cfg
-        h, w, ce = emb_t.shape
-        o = global_map_prev.shape[-1]
         if gmap_override is not None:
             gm = gmap_override
         else:
-            gm = self._global_matching(emb_t.reshape(-1, ce), ref_emb,
-                                       ref_onehot, ref_valid).reshape(h, w, o)
+            h, w, ce = emb_t.shape
+            gm = self._global_matching(
+                emb_t.reshape(-1, ce), ref_emb, ref_onehot,
+                ref_valid).reshape(h, w, global_map_prev.shape[-1])
         gm = torch.minimum(gm, global_map_prev)            # C8 min-fusion
+        lm = self.local_map(emb_t, prev_emb, prev_mask)
 
-        # local matching against the previous frame's hard labels, at
-        # reduced resolution when local_downsample > 1
-        prev_onehot = F.one_hot(prev_mask.argmax(dim=-1), o).float()
-        s = cfg.local_downsample
-        if s > 1:
-            hw = (h // s, w // s)
-            lm = self._local_matching(
-                resize_bilinear(emb_t, hw), resize_bilinear(prev_emb, hw),
-                resize_nearest(prev_onehot, hw))
-            lm = resize_bilinear(lm, (h, w))
-        else:
-            lm = self._local_matching(emb_t, prev_emb, prev_onehot)
-
+        o = gm.shape[-1]
         dt = feature_t.dtype
         maps = [_fold_maps(gm).to(dt), _fold_maps(lm).to(dt),
                 _fold_maps(prev_mask).to(dt)]
         if head_pre is not None:
-            cf = cfg.decoder_channels
+            cf = self.cfg.decoder_channels
             pre0 = self._head_conv0_slice(torch.cat(maps, dim=1), cf, cf + 3) \
                 + _nchw(head_pre).to(self.dtype)
             logits = self.propagation_head(None, pre0=pre0)
@@ -208,6 +198,55 @@ class MANet(nn.Module):
         logits = logits[:, 0].permute(1, 2, 0)             # (h, w, O) f32
         logits = logits + (1.0 - obj_valid) * NEG_INF
         return logits, gm
+
+    def local_map(self, emb_t, prev_emb, prev_mask):
+        """Local matching of emb_t (h, w, Ce) against the previous frame's
+        embedding and hard labels (the argmax of prev_mask (h, w, O)), at
+        reduced resolution when local_downsample > 1 -> (h, w, O) f32."""
+        h, w = emb_t.shape[:2]
+        prev_onehot = F.one_hot(prev_mask.argmax(dim=-1),
+                                prev_mask.shape[-1]).float()
+        s = self.cfg.local_downsample
+        if s > 1:
+            hw = (h // s, w // s)
+            lm = self._local_matching(
+                resize_bilinear(emb_t, hw), resize_bilinear(prev_emb, hw),
+                resize_nearest(prev_onehot, hw))
+            return resize_bilinear(lm, (h, w))
+        return self._local_matching(emb_t, prev_emb, prev_onehot)
+
+    # -- a clip from its first mask (the batch engine) -------------------- #
+
+    def start_clip(self, feat_s, first_oh, obj_valid):
+        """What a clip's steps share, from its features (T, h, w, Cd) and
+        first mask's one-hot (h, w, O): the interaction memory seeded from
+        the mask (which stands in for the first round's scribbles) and the
+        decomposed head's per-frame feature and per-clip memory conv0
+        contributions. -> (the clip, {"int_mem": (O, h, w, Cma)}: the
+        state that a caller may ask to have handed back)."""
+        pos = first_oh
+        neg = (pos.amax(dim=-1, keepdim=True) - pos) * obj_valid
+        int_feats, _ = self.interact(feat_s[0], pos, neg, first_oh)
+        int_mem = self.aggregate_memory(int_feats,
+                                        torch.zeros_like(int_feats), True)
+        clip = {"ov": obj_valid, "head_fp": self.head_feat_contrib(feat_s),
+                "head_mp": self.head_mem_contrib(int_mem)}
+        return clip, {"int_mem": int_mem}
+
+    def clip_head(self, clip, i: int, feat_t, gm, lm, prev_probs):
+        """Frame i's head from `start_clip`'s clip, its global and local
+        maps and the previous frame's probabilities (h, w, O) -> logits
+        (h, w, O) f32, absent objects at NEG_INF: `propagate`'s decomposed
+        head with no running minimum (the global map is against frame 0
+        alone, each d in [0, 1])."""
+        dt = feat_t.dtype
+        maps = torch.cat([_fold_maps(m).to(dt) for m in (gm, lm, prev_probs)],
+                         dim=1)
+        cf = self.cfg.decoder_channels
+        pre0 = self._head_conv0_slice(maps, cf, cf + 3) + _nchw(
+            clip["head_fp"][i][None] + clip["head_mp"]).to(self.dtype)
+        logits = self.propagation_head(None, pre0=pre0)[:, 0].permute(1, 2, 0)
+        return logits + (1.0 - clip["ov"]) * NEG_INF
 
     def prepare_ref(self, ref_emb, ref_onehot, ref_valid=None):
         """The matching reference (Nk, Ce) bucketed by object for

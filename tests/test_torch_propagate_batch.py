@@ -153,7 +153,8 @@ def test_cli_prints_metric_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(tpb, "resolve_device",
                         lambda device=None: torch.device("cpu"))
     for extra in ([], ["--matching_int8", "--ingest", "yuv420",
-                       "--upload_threads", "2"]):
+                       "--upload_threads", "2"],
+                  ["--arch", "feelvos", "--ingest", "yuv420"]):
         tpb.main(["--tiny", "--batch", "2", "--frames", "4",
                   "--timed_batches", "1", *extra])
         rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -162,6 +163,8 @@ def test_cli_prints_metric_on_cpu(monkeypatch, capsys):
         assert rec["device_busy_fraction"] > 0
         assert rec["batch"] == 2 and rec["frames"] == 4
         assert rec["device"] == "cpu"
+    with pytest.raises(SystemExit):      # int8 matching is MANet's
+        tpb.main(["--tiny", "--arch", "feelvos", "--matching_int8"])
 
 
 @pytest.mark.parametrize("batch,frames,image_hw", [

@@ -279,9 +279,12 @@ def test_profile_round_reads_the_phase_spans(tiny):
 
 
 def test_batch_pieces_emit_their_spans(tiny):
-    """`BatchPropagator`'s upload, dispatch (one `manet.batch.clip` a
-    clip, nested in it) and drain each record their span once, in order,
-    on the calling thread; the clip spans cover most of the dispatch."""
+    """`BatchPropagator`'s upload (one `manet.batch.encode` an encoder
+    call, nested in it), dispatch (one `manet.batch.clip` a clip, nested
+    in it, with one `manet.batch.head` for the clip's start and one a
+    step, nested in the clip) and drain each record their span once, in
+    order, on the calling thread; the clip spans cover most of the
+    dispatch."""
     from cvpr2020_manet_tpu_torch.engine.propagate_batch import (
         BatchPropagator)
     cfg, model, ds, seq = tiny
@@ -297,13 +300,21 @@ def test_batch_pieces_emit_their_spans(tiny):
         prop.drain(*prop.dispatch(ex, first, nobj, frames.shape[:2]))
 
     spans, thread = _traced(call)
+    heads = ["manet.batch.head"] * frames.shape[1]   # the start, T - 1 steps
     assert [s[0] for s in spans] == [
-        "manet.batch.upload", "manet.batch.dispatch", "manet.batch.clip",
-        "manet.batch.clip", "manet.batch.drain"]
+        "manet.batch.upload", "manet.batch.encode", "manet.batch.dispatch",
+        "manet.batch.clip", *heads, "manet.batch.clip", *heads,
+        "manet.batch.drain"]
     assert {s[3] for s in spans} == {thread}
+    (_, ua, ub, _), (_, ea, eb, _) = spans[:2]
+    assert ua <= ea <= eb <= ub
     (_, a, b, _), = [s for s in spans if s[0] == "manet.batch.dispatch"]
     clips = [s for s in spans if s[0] == "manet.batch.clip"]
     assert all(a <= s <= e <= b for _, s, e, _ in clips)
+    for _, ca, cb, _ in clips:
+        inside = [s for s in spans
+                  if s[0] == "manet.batch.head" and ca <= s[1] <= s[2] <= cb]
+        assert len(inside) == len(heads)
     assert spans[0][2] <= a and b <= spans[-1][1]
     assert sum(e - s for _, s, e, _ in clips) / (b - a) >= 0.5
 
